@@ -1,0 +1,262 @@
+"""Explicit-Schur Levenberg-Marquardt bundle adjustment (torch).
+
+Port of ``privacy_preserving_sfm_tpu/optim/ba_soa.py:134-432``, the solver
+the mapper runs for every BA with C <= 1024 cameras on an accelerator.
+Same LM damping, accept/reject, gradient and rejection stops, and gauge
+masks as the reference; per LM iteration:
+
+1. one residual + Jacobian pass at the trial point (``torch.func.jacfwd``
+   under ``torch.func.vmap`` over the observations), giving its robust
+   cost and its normal equations: per-point Hpp (P, 3, 3), gp (P, 3),
+   per-observation Hcp (K, P, 6, 3), per-camera Hcc (C, 6, 6), gc (C, 6);
+2. points eliminated in closed form: with L = chol(Hpp_damped^-1), the
+   blocks LH = L^T Hcp go to the Schur Gram ``schur_pcg.gram_soa``, which
+   returns S_corr = V^T V and rhs_corr;
+3. the reduced camera system S = dHcc - S_corr (dense, identity-padded to
+   ``padded_dim(C)``) is solved by ``schur_pcg.pcg`` with the block-Jacobi
+   preconditioner, and the point steps are back-substituted.
+
+Layout: observations are indexed flat as k*P + p (slot-major), so every
+per-observation tensor reshapes to (K, P, ...) and point-side sums run
+over the K axis.  The reference's TPU layout tricks (one-hot MXU gathers,
+optimization barriers, tuples of (K, P) component arrays) are replaced by
+``index_select``-style gathers and ``index_add_``.
+
+The LM loop is a Python loop that reads the accept flag once per
+iteration (and the gradient norm, when a gradient tolerance is set).
+``torch.profiler`` sees the spans ``ba_soa.build_normal``,
+``ba_soa.solve_step``, ``ba_soa.gram`` and ``ba_soa.pcg``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.func import jacfwd, vmap
+from torch.profiler import record_function
+
+from privacy_preserving_sfm_torch.ops import lie, lines as line_ops
+from privacy_preserving_sfm_torch.optim import ba as ba_mod
+from privacy_preserving_sfm_torch.optim import ba_dense, schur_pcg
+
+
+def _residual(dc, dX, q, t, X, par, line, camera_model):
+    """Residual (2,) of one observation at the tangent step (dc, dX)."""
+    qq = lie.quat_multiply(q, ba_mod._quat_delta(dc[:3]))
+    tt = t + dc[3:]
+    return line_ops.line_ba_residual(line, X + dX, qq, tt, camera_model, par)
+
+
+def _residual_and_jacobians(q, t, X, par, line, camera_model):
+    """r (2,), J_camera (2, 6), J_point (2, 3) of one observation."""
+    def f(dc, dX):
+        r = _residual(dc, dX, q, t, X, par, line, camera_model)
+        return r, r
+
+    (Jc, Jp), r = jacfwd(f, argnums=(0, 1), has_aux=True)(
+        q.new_zeros(6), q.new_zeros(3))
+    return r, Jc, Jp
+
+
+def residuals_and_jacobians(q_o, t_o, X_o, par_o, line_o, camera_model):
+    """Batched over observations: r (N, 2), Jc (N, 2, 6), Jp (N, 2, 3)."""
+    fn = functools.partial(_residual_and_jacobians,
+                           camera_model=camera_model)
+    return vmap(fn)(q_o, t_o, X_o, par_o, line_o)
+
+
+def _chol3_comps(a11, a21, a31, a22, a32, a33):
+    """Closed-form lower Cholesky of symmetric 3x3 from components."""
+    l11 = torch.sqrt(a11.clamp_min(1e-30))
+    l21 = a21 / l11
+    l31 = a31 / l11
+    l22 = torch.sqrt((a22 - l21 * l21).clamp_min(1e-30))
+    l32 = (a32 - l31 * l21) / l22
+    l33 = torch.sqrt((a33 - l31 * l31 - l32 * l32).clamp_min(1e-30))
+    return l11, l21, l31, l22, l32, l33
+
+
+def _inv3_comps(a11, a21, a31, a22, a32, a33):
+    """Closed-form inverse of symmetric 3x3 from components (adjugate)."""
+    c11 = a22 * a33 - a32 * a32
+    c21 = a32 * a31 - a21 * a33
+    c31 = a21 * a32 - a22 * a31
+    c22 = a11 * a33 - a31 * a31
+    c32 = a21 * a31 - a11 * a32
+    c33 = a11 * a22 - a21 * a21
+    det = a11 * c11 + a21 * c21 + a31 * c31
+    d = 1.0 / torch.where(det.abs() < 1e-30, det.new_full((), 1e-30), det)
+    return c11 * d, c21 * d, c31 * d, c22 * d, c32 * d, c33 * d
+
+
+def _sym3_matvec(m, x0, x1, x2):
+    """(m11,m21,m31,m22,m32,m33) @ (x0,x1,x2) componentwise."""
+    m11, m21, m31, m22, m32, m33 = m
+    return (m11 * x0 + m21 * x1 + m31 * x2,
+            m21 * x0 + m22 * x1 + m32 * x2,
+            m31 * x0 + m32 * x1 + m33 * x2)
+
+
+def _embed_block_diag(blocks: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(C, 6, 6) diagonal blocks -> dense (n_pad, n_pad), identity padding."""
+    C = blocks.shape[0]
+    n = 6 * C
+    out = blocks.new_zeros(n_pad, n_pad)
+    ar = torch.arange(C, device=blocks.device)
+    out[:n, :n].view(C, 6, C, 6)[ar, :, ar, :] = blocks
+    pad = torch.arange(n, n_pad, device=blocks.device)
+    out[pad, pad] = 1.0
+    return out
+
+
+def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
+                      options: ba_mod.BAOptions = ba_mod.BAOptions(),
+                      *, plain: bool = False):
+    """Explicit-Schur LM on a dense per-point problem.
+
+    Returns (qvecs, tvecs, points3d, BASummary).  Requires
+    ``schur_pcg.explicit_fits(C)``.  ``plain=True`` runs the Gram and the
+    PCG through their plain PyTorch versions whatever the device (a
+    reference run on the card); by default they dispatch on the device.
+    """
+    C = problem.qvecs.shape[0]
+    P, K = problem.obs_cam.shape
+    dtype = problem.points3d.dtype
+    dev = problem.points3d.device
+    dyn = ba_mod.DynamicBAOptions.from_options(options)
+    gram = schur_pcg.gram_soa_plain if plain else schur_pcg.gram_soa
+    pcg = schur_pcg.pcg_plain if plain else schur_pcg.pcg
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    n = 6 * C
+    n_pad = schur_pcg.padded_dim(C)
+
+    # ---- static observation-side tensors (once per solve) ----
+    oc_kp = problem.obs_cam.T.contiguous()  # (K, P)
+    cam_kp32 = oc_kp.to(torch.int32)
+    oc = oc_kp.reshape(-1)  # (K*P,), index k*P + p
+    w_o = problem.obs_weight.T.reshape(-1).to(dtype)
+    line_o = problem.obs_line.transpose(0, 1).reshape(-1, 3)
+    par_o = problem.cam_params[oc]
+    dof_o = problem.cam_dof_mask[oc]  # (K*P, 6)
+    pmask = problem.point_mask.to(dtype)  # (P,)
+    pmask_o = pmask.repeat(K)
+
+    @record_function("ba_soa.build_normal")
+    def build_normal(q, t, X):
+        """Robust cost and normal equations at (q, t, X)."""
+        r, Jc, Jp = residuals_and_jacobians(
+            q[oc], t[oc], X.repeat(K, 1), par_o, line_o, camera_model)
+        Jc = Jc * dof_o[:, None, :]  # freeze masked dofs
+        Jp = Jp * pmask_o[:, None, None]  # and constant points
+        sq = r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]
+        cost = 0.5 * torch.sum(
+            ba_mod._robust_cost(sq, dyn.loss, dyn.loss_scale) * w_o)
+        w = ba_mod._robust_weight(sq, dyn.loss, dyn.loss_scale) * w_o
+        # Point side, reduced over K.
+        hpp = ((Jp[:, :, :, None] * Jp[:, :, None, :]).sum(1)
+               * w[:, None, None]).reshape(K, P, 3, 3).sum(0)
+        gp = ((Jp * r[:, :, None]).sum(1)
+              * w[:, None]).reshape(K, P, 3).sum(0)
+        # Cross blocks (K, P, 6, 3).
+        hcp = ((Jc[:, :, :, None] * Jp[:, :, None, :]).sum(1)
+               * w[:, None, None]).reshape(K, P, 6, 3)
+        # Camera side, summed into the C bins.
+        hcc_o = (Jc[:, :, :, None] * Jc[:, :, None, :]).sum(1) \
+            * w[:, None, None]
+        gc_o = (Jc * r[:, :, None]).sum(1) * w[:, None]
+        Hcc = hcc_o.new_zeros(C, 6, 6).index_add_(0, oc, hcc_o)
+        # index_add_ may sum the two triangles in different orders (CUDA
+        # atomics); the mean restores exact symmetry and is exact on CPU.
+        Hcc = 0.5 * (Hcc + Hcc.transpose(1, 2))
+        gc = gc_o.new_zeros(C, 6).index_add_(0, oc, gc_o)
+        return cost, (hpp, gp, hcp, Hcc, gc)
+
+    @record_function("ba_soa.solve_step")
+    def solve_step(normal, lam):
+        hpp, gp, hcp, Hcc, gc = normal
+        dHcc = Hcc + lam * torch.diag_embed(
+            torch.diagonal(Hcc, dim1=-2, dim2=-1)) + 1e-12 * eye6
+        d11 = hpp[:, 0, 0] * (1.0 + lam) + 1e-12
+        d22 = hpp[:, 1, 1] * (1.0 + lam) + 1e-12
+        d33 = hpp[:, 2, 2] * (1.0 + lam) + 1e-12
+        hinv = _inv3_comps(d11, hpp[:, 0, 1], hpp[:, 0, 2], d22,
+                           hpp[:, 1, 2], d33)  # (P,) x 6
+        l11, l21, l31, l22, l32, l33 = (
+            c[:, None] for c in _chol3_comps(*hinv))  # (P, 1) each
+
+        # LH[a][i] = (L^T Hcp)[a, i] = sum_b L[b, a] hcp[i][b]; L lower.
+        h0, h1, h2 = hcp[..., 0], hcp[..., 1], hcp[..., 2]  # (K, P, 6)
+        lh = torch.stack([l11 * h0 + l21 * h1 + l31 * h2,
+                          l22 * h1 + l32 * h2,
+                          l33 * h2])  # (3, K, P, 6)
+        lh_stack = lh.permute(0, 3, 1, 2).reshape(18 * K, P)
+        g0, g1, g2 = gp[:, 0], gp[:, 1], gp[:, 2]
+        gL = torch.stack([l11[:, 0] * g0 + l21[:, 0] * g1 + l31[:, 0] * g2,
+                          l22[:, 0] * g1 + l32[:, 0] * g2,
+                          l33[:, 0] * g2])  # (3, P)
+
+        with record_function("ba_soa.gram"):
+            S_corr, rhs_corr = gram(lh_stack, gL, cam_kp32, C)
+        rhs = gc.reshape(n) - rhs_corr
+        SJ = dHcc - schur_pcg.diag_blocks(S_corr, C)
+        SJ_inv = ba_mod._inv6(SJ + 1e-12 * eye6)
+        S = _embed_block_diag(dHcc, n_pad)
+        S[:n, :n] -= S_corr
+        Minv = _embed_block_diag(SJ_inv, n_pad)
+        rhs_p = torch.cat([rhs, rhs.new_zeros(n_pad - n)])
+        with record_function("ba_soa.pcg"):
+            dcf = pcg(S, Minv, rhs_p, options.cg_iterations)
+        dc = _finite_or_zero(dcf[:n].reshape(C, 6))
+
+        # Back-substitution: dp = Hpp_inv (gp - E^T dc).
+        dcg = dc[oc_kp]  # (K, P, 6)
+        et = (hcp * dcg[..., None]).sum(2).sum(0)  # (P, 3)
+        dp = torch.stack(_sym3_matvec(hinv, g0 - et[:, 0], g1 - et[:, 1],
+                                      g2 - et[:, 2]), dim=-1)
+        return dc, _finite_or_zero(dp)
+
+    q, t, X = problem.qvecs, problem.tvecs, problem.points3d
+    cost0, normal = build_normal(q, t, X)
+    c = cost0
+    lam = dyn.initial_lambda
+    it = stall = rej = 0
+    while (it < dyn.max_iterations and stall < 2
+           and lam < options.max_lambda * 0.99):
+        grad_done = False
+        if dyn.gradient_tolerance > 0:
+            gc_m = normal[4] * problem.cam_dof_mask
+            gp_m = normal[1] * pmask[:, None]
+            g_max = torch.maximum(gc_m.abs().max(), gp_m.abs().max())
+            grad_done = bool(g_max <= dyn.gradient_tolerance)
+        dc, dp = solve_step(normal, lam)
+        q_new, t_new, X_new = ba_mod._apply_step(
+            q, t, X, -(dc * problem.cam_dof_mask), -(dp * pmask[:, None]))
+        # Trial cost and normal equations from one pass: kept on accept
+        # (the next linearization), dropped on reject.
+        c_new, normal_new = build_normal(q_new, t_new, X_new)
+        accept = bool(c_new < c)
+        rel = float((c - c_new) / torch.clamp_min(c, 1e-30))
+        if accept:
+            q, t, X, c, normal = q_new, t_new, X_new, c_new, normal_new
+            lam = max(lam / 3.0, options.min_lambda)
+        else:
+            lam = min(lam * 4.0, options.max_lambda)
+        if accept and rel < dyn.function_tolerance:
+            stall += 1
+        elif accept:
+            stall = 0
+        if grad_done:
+            stall = 2
+        rej = 0 if accept else rej + 1
+        if rej >= options.max_consecutive_rejections:
+            stall = 2
+        it += 1
+    summary = ba_mod.BASummary(initial_cost=float(cost0),
+                               final_cost=float(c), num_iterations=it,
+                               lam=lam)
+    return q, t, X, summary

@@ -1,0 +1,111 @@
+"""Seeded synthetic line-feature models for tests and the chip smoke run.
+
+``synthetic_model`` builds a reconstruction in the layout of the line
+bundle-adjustment benchmark (``bench.py:28-81``): cameras spread along a
+baseline with small yaws, points in front of them, each point observed by
+``obs_per_point`` distinct cameras in which it projects inside the image.
+Every observation stores a random line through the projected point, with
+``meas_noise`` of Gaussian noise in the normalized plane; poses and
+points then get the start perturbations of the benchmark.  Numpy only, so
+both the reference package and the port can read the model it writes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from privacy_preserving_sfm_torch.models.reconstruction import (
+    Camera, Image, Reconstruction,
+)
+from privacy_preserving_sfm_torch.ops import lie_np
+
+
+# SIMPLE_PINHOLE (f, cx, cy), image size, and the benchmark's start
+# perturbations of quaternions, translations and points.
+PARAMS = (500.0, 320.0, 240.0)
+WIDTH, HEIGHT = 640, 480
+Q_NOISE, T_NOISE, X_NOISE = 1e-3, 1e-2, 1e-2
+# Projections keep this many pixels from the image border, so the
+# perturbed model's observations stay inside the image.
+MARGIN = 10.0
+
+
+def synthetic_model(num_images: int, num_points: int, obs_per_point: int,
+                    seed: int, meas_noise: float = 2e-4) -> Reconstruction:
+    """A registered SIMPLE_PINHOLE model with perturbed poses and points."""
+    rng = np.random.default_rng(seed)
+    f, cx, cy = PARAMS
+    width, height, margin = WIDTH, HEIGHT, MARGIN
+    qs = np.zeros((num_images, 4))
+    ts = np.zeros((num_images, 3))
+    for c in range(num_images):
+        yaw = rng.uniform(-0.2, 0.2)
+        qs[c] = [np.cos(yaw / 2), 0, np.sin(yaw / 2), 0]
+        ts[c] = [rng.uniform(-2, 2), rng.uniform(-0.3, 0.3),
+                 rng.uniform(-0.5, 0.5)]
+    R = np.stack([lie_np.quat_to_rotmat(q) for q in qs])
+
+    pts, tracks = [], []
+    while len(pts) < num_points:
+        X = np.stack([rng.uniform(-3, 3, 4 * num_points),
+                      rng.uniform(-2, 2, 4 * num_points),
+                      rng.uniform(9, 15, 4 * num_points)], axis=1)
+        Xc = np.einsum("cij,mj->mci", R, X) + ts[None]
+        z = Xc[..., 2]
+        px = f * Xc[..., 0] / z + cx
+        py = f * Xc[..., 1] / z + cy
+        vis = ((z > 0.5) & (px > margin) & (px < width - margin)
+               & (py > margin) & (py < height - margin))
+        for m in np.nonzero(vis.sum(1) >= obs_per_point)[0]:
+            if len(pts) == num_points:
+                break
+            cams = rng.choice(np.nonzero(vis[m])[0], obs_per_point,
+                              replace=False)
+            pts.append(X[m])
+            tracks.append(np.sort(cams))
+    pts = np.asarray(pts)
+
+    per_image_lines = [[] for _ in range(num_images)]
+    per_image_pid = [[] for _ in range(num_images)]
+    for p, cams in enumerate(tracks):
+        for c in cams:
+            xc = R[c] @ pts[p] + ts[c]
+            uv = xc[:2] / xc[2] + rng.normal(0, meas_noise, 2)
+            line = np.cross(rng.standard_normal(3), np.append(uv, 1.0))
+            per_image_lines[c].append(line / np.linalg.norm(line[:2]))
+            per_image_pid[c].append(p)
+
+    rec = Reconstruction()
+    rec.add_camera(Camera(camera_id=1, model="SIMPLE_PINHOLE", width=width,
+                          height=height, params=np.asarray(PARAMS)))
+    for c in range(num_images):
+        lines = np.asarray(per_image_lines[c]).reshape(-1, 3)
+        q = qs[c] + rng.normal(0, Q_NOISE, 4)
+        rec.add_image(Image(
+            image_id=c + 1, name=f"image{c + 1:05d}.png", camera_id=1,
+            qvec=q / np.linalg.norm(q),
+            tvec=ts[c] + rng.normal(0, T_NOISE, 3),
+            lines=lines, aligned=np.zeros(len(lines), bool)))
+        rec.register_image(c + 1)
+    slot = [0] * num_images
+    for p, cams in enumerate(tracks):
+        track = []
+        for c in cams:
+            track.append((int(c) + 1, slot[c]))
+            slot[c] += 1
+        rec.add_point3d(pts[p] + rng.normal(0, X_NOISE, 3), track)
+    return rec
+
+
+def line_error_sum(rec: Reconstruction) -> float:
+    """Sum of squared pixel point-to-line errors over all observations."""
+    obs_img, obs_li, xyz = [], [], []
+    for pt in rec.points3d.values():
+        for iid, li in pt.track:
+            obs_img.append(iid)
+            obs_li.append(li)
+            xyz.append(pt.xyz)
+    errs = rec.batch_squared_line_errors(np.asarray(obs_img),
+                                         np.asarray(obs_li),
+                                         np.asarray(xyz).reshape(-1, 3))
+    return float(np.sum(errs))

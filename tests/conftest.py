@@ -43,6 +43,9 @@ if os.environ.get("PPSFM_NO_CACHE") != "1":
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without "
+        "a CUDA device")
 
 
 # The full suite compiles many hundreds of XLA:CPU executables into one

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device (and nvcc to build the kernels on
+first use); without one they skip.  Run them on a GPU machine with
+``python -m pytest tests/test_torch_kernels.py -q``.  ``chip_smoke.py``
+makes the same checks at the main path's full sizes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from privacy_preserving_sfm_torch.kernels import build as kernels
+from privacy_preserving_sfm_torch.optim import ba as tba
+from privacy_preserving_sfm_torch.optim import ba_dense as tbd
+from privacy_preserving_sfm_torch.optim import ba_soa as tsoa
+from privacy_preserving_sfm_torch.optim import convert
+from privacy_preserving_sfm_torch.optim import schur_pcg as tsp
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gram_inputs(seed, K, P, C, dtype, device, repeat=False):
+    rng = np.random.default_rng(seed)
+    lh = torch.tensor(rng.standard_normal((18 * K, P)), dtype=dtype,
+                      device=device)
+    gl = torch.tensor(rng.standard_normal((3, P)), dtype=dtype,
+                      device=device)
+    cam = rng.integers(0, C, (K, P)).astype(np.int32)
+    if repeat:  # repeated cameras within a point, and empty slots
+        cam[1] = cam[0]
+        cam[-1, ::3] = -1
+    return lh, gl, torch.tensor(cam, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,P,C,repeat", [(4, 37, 9, False),
+                                          (6, 900, 40, True),
+                                          (32, 300, 300, False)])
+def test_gram_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
+    lh, gl, cam = _gram_inputs(1, K, P, C, dtype, cuda, repeat)
+    S_ref, r_ref = tsp.gram_soa_plain(lh.double(), gl.double(), cam, C)
+    n0 = kernels.LAUNCHES["schur_gram"]
+    S, r = tsp.gram_soa(lh, gl, cam, C)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schur_gram"] == n0 + 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    scale = S_ref.abs().max()
+    assert (S.double() - S_ref).abs().max() <= tol * scale
+    assert (r.double() - r_ref).abs().max() <= tol * r_ref.abs().max()
+    assert torch.equal(S, S.T)
+    S2, r2 = tsp.gram_soa(lh, gl, cam, C)
+    assert torch.equal(S, S2) and torch.equal(r, r2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [9, 100])
+def test_pcg_kernel_matches_plain(cuda, dtype, C):
+    rng = np.random.default_rng(2)
+    N = tsp.padded_dim(C)
+    A = rng.standard_normal((N, N))
+    S = torch.tensor(A @ A.T + N * np.eye(N), dtype=dtype, device=cuda)
+    Minv = torch.diag(1.0 / torch.diagonal(S))
+    rhs = torch.tensor(rng.standard_normal(N), dtype=dtype, device=cuda)
+    x_ref = tsp.pcg_plain(S.double(), Minv.double(), rhs.double(), 30)
+    n0 = kernels.LAUNCHES["schur_pcg"]
+    x = tsp.pcg(S, Minv, rhs, 30)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schur_pcg"] == n0 + 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert float((x.double() - x_ref).norm() / x_ref.norm()) <= tol
+
+
+def test_bundle_adjust_soa_kernels_match_plain(cuda):
+    rng = np.random.default_rng(3)
+    C, P, K = 12, 300, 5
+    pts = rng.uniform(-2, 2, (P, 3)) + np.array([0, 0, 8.0])
+    qs = np.tile([1.0, 0, 0, 0], (C, 1)) + rng.normal(0, 1e-3, (C, 4))
+    ts = np.stack([rng.uniform(-2, 2, C), rng.uniform(-0.3, 0.3, C),
+                   rng.uniform(-0.5, 0.5, C)], 1)
+    obs_cam = np.stack([rng.permutation(C)[:K] for _ in range(P)])
+    lines = rng.standard_normal((P * K, 3))
+    lines /= np.linalg.norm(lines[:, :2], axis=-1, keepdims=True)
+    mask = np.ones((C, 6))
+    mask[0] = 0.0
+    mask[1, 3] = 0.0
+    fields = dict(qvecs=qs, tvecs=ts, cam_params=np.tile([500.0, 320, 240],
+                                                         (C, 1)),
+                  points3d=pts, obs_cam=obs_cam.reshape(-1),
+                  obs_point=np.repeat(np.arange(P), K), obs_line=lines,
+                  obs_weight=np.ones(P * K), cam_dof_mask=mask,
+                  point_mask=np.ones(P))
+    dense = tbd.from_flat_problem(
+        convert.ba_problem_from_numpy(fields, cuda, torch.float64))
+    opts = tba.BAOptions(max_iterations=3, cg_iterations=20)
+    ref = tsoa.bundle_adjust_soa(dense, "SIMPLE_PINHOLE", opts, plain=True)
+    got = tsoa.bundle_adjust_soa(dense, "SIMPLE_PINHOLE", opts)
+    assert got[3].num_iterations == ref[3].num_iterations
+    np.testing.assert_allclose(got[3].final_cost, ref[3].final_cost,
+                               rtol=1e-9)
+    for a, b in zip(got[:3], ref[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=0, atol=1e-8)
