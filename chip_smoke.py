@@ -5,9 +5,14 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card, then drives the
-port's main path once through its CLI: ``bundle_adjuster`` on a seeded
-synthetic model at the line-BA benchmark's size (100 cameras, 20,000
-points, 120,000 observations).  Prints one line per phase, then a JSON
+port's two paths once each through its CLI: ``bundle_adjuster`` on a
+seeded synthetic model at the line-BA benchmark's size (100 cameras,
+20,000 points, 120,000 observations), and ``exhaustive_matcher`` on a
+seeded synthetic database of 64 images x 8,192 descriptors (the
+reference's default feature cap; 2,016 pairs), checked against the
+generator's true correspondences, against the plain version on 16 pairs
+and against the bounded-memory block mode.  Prints one line per phase,
+then a JSON
 line with each kernel's launches, error and times, the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed phase
@@ -38,6 +43,15 @@ CG_ITERS = 30
 MAIN = dict(num_images=100, num_points=20000, obs_per_point=6,
             meas_noise=2e-4)
 LM_ITERS = 20
+# (B, N1, N2, special) for the match kernel checks: the production shape
+# (the reference's max_num_features = 8192), padding with duplicates and
+# ties, and an N1 that is not a multiple of 128.
+MATCH_SHAPES = [(4, 8192, 8192, False), (3, 384, 512, True),
+                (2, 1000, 8192, False)]
+MATCHER = dict(num_images=64, num_features=8192)
+# Thresholds of the matcher phase against the generator's truth, set from
+# the first run on an H100 (precision 1.00000, recall 0.97531).
+MIN_PRECISION, MIN_RECALL = 0.99, 0.95
 
 
 def check(ok, msg):
@@ -272,8 +286,9 @@ def phase_main_path(device, card, workdir):
           f"{summary.num_iterations}, {rate:.1f} obs*iter/s (ba_solve), "
           f"peak device memory {peak / 2**20:.1f} MiB, launches "
           f"{launches} | {card}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    for name in ("schur_gram", "schur_pcg"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the main path")
 
     out = Reconstruction.read_text(out_dir)
     check(out.num_registered() == MAIN["num_images"], "images lost")
@@ -308,6 +323,188 @@ def phase_main_path(device, card, workdir):
     return launches
 
 
+def match_inputs(b, n1, n2, special, device, seed):
+    """SIFT-convention descriptors on the card; with ``special``, exact
+    duplicates making ties along a row and a column, padding on both
+    sides in pair 1 and a single valid candidate per row in pair 2."""
+    import numpy as np
+    import torch
+
+    from privacy_preserving_sfm_torch.utils.synthetic import sift_like
+
+    rng = np.random.default_rng(seed)
+    d1 = sift_like(rng.dirichlet(np.full(128, 0.2), (b, n1)))
+    d2 = sift_like(rng.dirichlet(np.full(128, 0.2), (b, n2)))
+    v1 = np.ones((b, n1), bool)
+    v2 = np.ones((b, n2), bool)
+    if special:
+        d2[0, 40] = d2[0, n2 - 1] = d1[0, 7]
+        d2[1, 3] = d2[1, 5]
+        d1[0, n1 - 1] = d1[0, 7]
+        v1[1, (2 * n1) // 3:] = False
+        v2[1, n2 // 2:] = False
+        v2[2, 1:] = False
+    return [torch.from_numpy(a).to(device) for a in (d1, d2, v1, v2)]
+
+
+def phase_match(device, card, reps=5):
+    """Match kernel vs its plain version: exact equality of the six
+    tables (three in row-only mode); returns the production shape's
+    stats."""
+    import torch
+
+    from privacy_preserving_sfm_torch.features import matching
+    from privacy_preserving_sfm_torch.features import matching_kernels as mk
+
+    plain = matching._top2_both_batched_plain
+    main_stats = None
+    for b, n1, n2, special in MATCH_SHAPES:
+        d1, d2, v1, v2 = match_inputs(b, n1, n2, special, device,
+                                      seed=n1 + n2)
+        ones = torch.ones_like(v1)
+        got = mk.top2_scores_bidir(d1, d2, v1, v2)
+        again = mk.top2_scores_bidir(d1, d2, v1, v2)
+        rows = mk.top2_scores(d1, d2, v2)
+        torch.cuda.synchronize()
+        ref = plain(d1, d2, v1, v2)
+        ref_rows = plain(d1, d2, ones, v2)[:3]
+        exact = all(torch.equal(g, r) for g, r in zip(got, ref))
+        exact_rows = all(torch.equal(g, r) for g, r in zip(rows, ref_rows))
+        stable = all(torch.equal(g, h) for g, h in zip(got, again))
+        err = max(float((g.double() - r.double()).abs().max())
+                  for g, r in zip(got, ref))
+        del ref, ref_rows, got, again, rows
+        ms = cuda_ms(lambda: mk.top2_scores_bidir(d1, d2, v1, v2), reps)
+        ms_rows = cuda_ms(lambda: mk.top2_scores(d1, d2, v2), reps)
+        plain_ms = cuda_ms(lambda: plain(d1, d2, v1, v2), reps)
+        plain_rows_ms = cuda_ms(lambda: plain(d1, d2, ones, v2)[:3], reps)
+        ops = 2.0 * b * n1 * n2 * 128
+        phase("match", f"B={b} N1={n1} N2={n2}"
+              f"{' (padding, duplicates, ties)' if special else ''}: "
+              f"six tables exact={exact}, row-only exact={exact_rows}, "
+              f"bit-equal across runs={stable}, max|diff|={err!r} | "
+              f"bidir kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} T int-op/s, "
+              f"{ms / b * 1e3:.1f} us/pair), plain {plain_ms:.4f} ms | "
+              f"row-only kernel {ms_rows:.4f} ms, plain "
+              f"{plain_rows_ms:.4f} ms | {card}")
+        check(exact, "match kernel disagrees with its plain version")
+        check(exact_rows, "row-only match kernel disagrees")
+        check(stable, "match kernel not deterministic")
+        if main_stats is None:
+            main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del d1, d2, v1, v2
+        torch.cuda.empty_cache()
+    return main_stats
+
+
+def _blobs(path, pairs=None):
+    import sqlite3
+
+    from privacy_preserving_sfm_torch.models.database import (
+        image_pair_to_pair_id,
+    )
+
+    con = sqlite3.connect(path)
+    try:
+        rows = dict((r[0], r[1:]) for r in con.execute(
+            "SELECT pair_id, rows, cols, data FROM matches"))
+    finally:
+        con.close()
+    if pairs is None:
+        return rows
+    return {k: rows.get(k) for k in
+            (image_pair_to_pair_id(a, b) for a, b in pairs)}
+
+
+def phase_matcher(device, card, workdir):
+    import shutil
+
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.features import schedulers
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        match_quality, synthetic_matching_database,
+    )
+
+    path = os.path.join(workdir, "scene.db")
+    t0 = time.perf_counter()
+    scene = synthetic_matching_database(path, seed=0, **MATCHER)
+    fresh = os.path.join(workdir, "fresh.db")
+    shutil.copy(path, fresh)
+    ids = scene.image_ids
+    npairs = len(ids) * (len(ids) - 1) // 2
+    phase("matcher", f"synthetic database: {len(ids)} images x "
+          f"{MATCHER['num_features']} descriptors, {npairs} pairs, "
+          f"{len(scene.true_matches)} overlapping, "
+          f"{sum(len(m) for m in scene.true_matches.values())} true "
+          f"correspondences, written in {time.perf_counter() - t0:.1f} s")
+
+    for name in build.LAUNCHES:
+        build.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    good = ppsfm.main(["exhaustive_matcher", "--database_path", path,
+                       "--device", device.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with Database(path) as db:
+        precision, recall, stored = match_quality(db, scene)
+    phase("matcher", f"exhaustive_matcher --device {device.type}: wall "
+          f"{wall:.3f} s, {npairs / wall:.1f} pairs/s, {good}/{npairs} "
+          f"pairs above threshold, {stored} matches stored, precision "
+          f"{precision:.5f} (min {MIN_PRECISION}), recall {recall:.5f} "
+          f"(min {MIN_RECALL}), peak device memory {peak / 2**20:.1f} MiB, "
+          f"launches {launches} | {card}")
+    check(launches["match_top2"] > 0,
+          "kernel match_top2 was not launched by the matcher")
+    check(len(_blobs(path)) == npairs, "a pair's matches were not written")
+    check(0 < good < npairs, "no pair, or every pair, above threshold")
+    check(precision >= MIN_PRECISION, "matcher precision below threshold")
+    check(recall >= MIN_RECALL, "matcher recall below threshold")
+
+    # 16 pairs again with the plain version on the card: eight neighbours
+    # (above threshold) and eight far pairs (zeroed).
+    pairs = [(ids[i], ids[i + 1]) for i in range(0, 64, 8)]
+    pairs += [(ids[i], ids[i + 40]) for i in range(0, 24, 3)]
+    plain_db = os.path.join(workdir, "plain.db")
+    shutil.copy(fresh, plain_db)
+    t0 = time.perf_counter()
+    with Database(plain_db) as db:
+        schedulers.match_pair_list(db, ids, pairs, device=device,
+                                   plain=True, chunk=4)
+    torch.cuda.synchronize()
+    same = _blobs(plain_db, pairs) == _blobs(path, pairs)
+    nonempty = sum(r[0] > 0 for r in _blobs(path, pairs).values())
+    phase("matcher", f"{len(pairs)} pairs re-matched with the plain "
+          f"version on the card in {time.perf_counter() - t0:.3f} s "
+          f"({nonempty} above threshold): blobs byte-identical={same}")
+    check(same, "plain-version blobs differ from the kernel's")
+
+    # Bounded-memory block mode over the first 24 images.
+    sub = ids[:24]
+    sub_pairs = schedulers.exhaustive_pairs(sub)
+    block_db = os.path.join(workdir, "block.db")
+    shutil.copy(fresh, block_db)
+    t0 = time.perf_counter()
+    with Database(block_db) as db:
+        schedulers.match_pair_list(db, sub, sub_pairs, device=device,
+                                   max_resident_images=16)
+    torch.cuda.synchronize()
+    same = _blobs(block_db, sub_pairs) == _blobs(path, sub_pairs)
+    phase("matcher", f"block mode (max_resident_images=16) over "
+          f"{len(sub_pairs)} pairs of {len(sub)} images in "
+          f"{time.perf_counter() - t0:.3f} s: blobs equal to the resident "
+          f"run={same}")
+    check(same, "block mode differs from resident mode")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "privacy_preserving_sfm_torch")):
         print("chip_smoke: privacy_preserving_sfm_torch not found beside "
@@ -330,12 +527,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             launches = phase_main_path(device, card, workdir)
+        torch.cuda.empty_cache()
+        match_stats = phase_match(device, card)
+        with tempfile.TemporaryDirectory() as workdir:
+            launches["match_top2"] = phase_matcher(
+                device, card, workdir)["match_top2"]
     except Exception:  # every phase failure ends the run with no result
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
         return 1
     src = "privacy_preserving_sfm_torch/kernels/"
     ref = "privacy_preserving_sfm_tpu/optim/schur_pcg.py"
+    mref = "privacy_preserving_sfm_tpu/features/matching_kernels.py"
     kernels = [
         dict(name="schur_gram", route="cuda", source=src + "schur_gram.cu",
              replaces=f"{ref}:383", also_replaces=f"{ref}:500",
@@ -343,6 +546,9 @@ def main() -> int:
         dict(name="schur_pcg", route="cuda", source=src + "schur_pcg.cu",
              replaces=f"{ref}:93", launches=launches["schur_pcg"],
              **pcg_stats),
+        dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
+             replaces=f"{mref}:250", also_replaces=f"{mref}:123",
+             launches=launches["match_top2"], **match_stats),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,10 @@ or its array framework.
 
 Ported so far: the ``bundle_adjuster`` slice, i.e. the mapper's global
 bundle adjustment on the explicit-Schur SoA solver (``optim/ba_soa.py``)
-with hand-written Schur Gram and PCG kernels.
+with hand-written Schur Gram and PCG kernels; and the matcher slice, i.e.
+the database, the exhaustive, sequential, spatial and transitive
+matchers and the matches importer (``features/``) with a hand-written
+top-2 match kernel.
 """
 
 __version__ = "0.1.0"

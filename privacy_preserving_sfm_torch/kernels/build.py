@@ -10,7 +10,8 @@ The launchers below are the only places a kernel is launched.  Each adds
 one to ``LAUNCHES[name]`` when it launches, so a run can show that its
 main path went through the kernels.  A kernel launches on PyTorch's
 current stream and allocates nothing; the callers in
-``optim/schur_pcg.py`` allocate outputs and scratch.  A failed build or a
+``optim/schur_pcg.py`` and ``features/matching_kernels.py`` allocate
+outputs and scratch.  A failed build or a
 non-zero ``cudaError_t`` from a launcher raises ``RuntimeError``.
 """
 
@@ -22,22 +23,27 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("schur_gram.cu", "schur_pcg.cu")
+SOURCES = ("schur_gram.cu", "schur_pcg.cu", "match_top2.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Launch counts by kernel name; callers may reset them to 0.
-LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_pcg": 0}
+LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_pcg": 0,
+                             "match_top2": 0}
 
 # Capacity of the PCG kernel's per-block partial sums (its grid is one
 # persistent block per resident slot, at most this many).
 PCG_MAX_BLOCKS = 4096
+
+# Rows per CTA of the match kernel: its column partials hold
+# ceil(N1 / MATCH_ROWS) row blocks.
+MATCH_ROWS = 128
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -102,6 +108,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"ppsfm_schur_pcg_{suffix}")
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
+    lib.ppsfm_match_top2.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                     vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.ppsfm_match_top2.restype = ci
     _lib = lib
     return lib
 
@@ -153,3 +162,25 @@ def launch_schur_pcg(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,
                  _stream(S))
     _check("schur_pcg", err)
     LAUNCHES["schur_pcg"] += 1
+
+
+def launch_match_top2(d1: torch.Tensor, d2: torch.Tensor, v1: torch.Tensor,
+                      v2: torch.Tensor, bd12: torch.Tensor,
+                      sd12: torch.Tensor, idx12: torch.Tensor,
+                      cols: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Launch ``match_top2.cu`` on d1 (B, N1, 128), d2 (B, N2, 128) uint8
+    and v1 (B, N1), v2 (B, N2) uint8: the row direction into bd12, sd12
+    float32 and idx12 int32 (B, N1).  With ``cols`` = (bd21, sd21, idx21,
+    part), also the column direction (B, N2), through the int32 scratch
+    ``part`` of 3 * B * ceil(N1 / MATCH_ROWS) * N2 elements.  The caller
+    has checked shapes and types."""
+    B, N1, _ = d1.shape
+    N2 = d2.shape[1]
+    rest = [t.data_ptr() for t in cols] if cols is not None else [None] * 4
+    with torch.cuda.device(d1.device):
+        err = library().ppsfm_match_top2(
+            d1.data_ptr(), d2.data_ptr(), v1.data_ptr(), v2.data_ptr(), B,
+            N1, N2, bd12.data_ptr(), sd12.data_ptr(), idx12.data_ptr(),
+            *rest, _stream(d1))
+    _check("match_top2", err)
+    LAUNCHES["match_top2"] += 1

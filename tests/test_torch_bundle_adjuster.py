@@ -80,6 +80,10 @@ def test_port_imports_without_jax():
         "from privacy_preserving_sfm_torch.optim import ba_soa, convert\n"
         "from privacy_preserving_sfm_torch.sfm import incremental_mapper\n"
         "from privacy_preserving_sfm_torch.utils import synthetic\n"
+        "from privacy_preserving_sfm_torch.features import (\n"
+        "    matching, matching_kernels, schedulers)\n"
+        "from privacy_preserving_sfm_torch.models import database\n"
+        "from privacy_preserving_sfm_torch.utils import gps\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"

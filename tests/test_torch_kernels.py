@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from privacy_preserving_sfm_torch.features import matching as tm
+from privacy_preserving_sfm_torch.features import matching_kernels as tmk
 from privacy_preserving_sfm_torch.kernels import build as kernels
 from privacy_preserving_sfm_torch.optim import ba as tba
 from privacy_preserving_sfm_torch.optim import ba_dense as tbd
@@ -111,3 +113,62 @@ def test_bundle_adjust_soa_kernels_match_plain(cuda):
     for a, b in zip(got[:3], ref[:3]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=0, atol=1e-8)
+
+
+def _match_inputs(seed, b, n1, n2, device):
+    """Seeded SIFT-convention descriptors with ties along a row and a
+    column (exact duplicates), padding on both sides in pair 1, and a
+    single valid candidate per row in pair 2."""
+    rng = np.random.default_rng(seed)
+    p1 = rng.dirichlet(np.full(128, 0.2), (b, n1))
+    p2 = rng.dirichlet(np.full(128, 0.2), (b, n2))
+    d1 = np.clip(np.round(512 * np.sqrt(p1)), 0, 255).astype(np.uint8)
+    d2 = np.clip(np.round(512 * np.sqrt(p2)), 0, 255).astype(np.uint8)
+    d2[0, n2 // 3] = d2[0, n2 - 1] = d1[0, n1 // 2]
+    d1[0, n1 - 1] = d1[0, n1 // 2]
+    v1 = np.ones((b, n1), bool)
+    v2 = np.ones((b, n2), bool)
+    if b > 1:
+        v1[1, (2 * n1) // 3:] = False
+        v2[1, n2 // 2:] = False
+    if b > 2:
+        v2[2, 1:] = False
+    return [torch.from_numpy(a).to(device) for a in (d1, d2, v1, v2)]
+
+
+@pytest.mark.parametrize("b,n1,n2", [(3, 384, 512), (2, 1000, 300),
+                                     (1, 1, 7), (3, 129, 2000)])
+def test_match_kernel_matches_plain(cuda, b, n1, n2):
+    d1, d2, v1, v2 = _match_inputs(n1 + n2, b, n1, n2, cuda)
+    ref = tm._top2_both_batched_plain(d1, d2, v1, v2)
+    n0 = kernels.LAUNCHES["match_top2"]
+    got = tmk.top2_scores_bidir(d1, d2, v1, v2)
+    again = tmk.top2_scores_bidir(d1, d2, v1, v2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["match_top2"] == n0 + 2
+    for r, g, h in zip(ref, got, again):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+        assert torch.equal(g, h)
+    ones = torch.ones_like(v1)
+    ref_rows = tm._top2_both_batched_plain(d1, d2, ones, v2)[:3]
+    for r, g in zip(ref_rows, tmk.top2_scores(d1, d2, v2)):
+        assert torch.equal(g, r)
+
+
+def test_match_kernel_takes_only_128_byte_descriptors(cuda):
+    d = torch.zeros(1, 16, 64, dtype=torch.uint8, device=cuda)
+    v = torch.ones(1, 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="D = 128"):
+        tmk.top2_scores_bidir(d, d, v, v)
+
+
+def test_match_many_pairs_kernel_matches_plain(cuda):
+    d1, d2, v1, v2 = _match_inputs(11, 3, 700, 700, cuda)
+    desc = torch.cat([d1, d2])
+    valid = torch.cat([v1, v2])
+    pairs = torch.tensor([[0, 3], [1, 4], [2, 5], [3, 0], [1, 1]],
+                         device=cuda)
+    ref = tm.match_many_pairs(desc, valid, pairs, plain=True)
+    got = tm.match_many_pairs(desc, valid, pairs)
+    for r, g in zip(ref, got):
+        assert torch.equal(g, r)
