@@ -5,14 +5,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card, then drives the
-port's two paths once each through its CLI: ``bundle_adjuster`` on a
-seeded synthetic model at the line-BA benchmark's size (100 cameras,
-20,000 points, 120,000 observations), and ``exhaustive_matcher`` on a
-seeded synthetic database of 64 images x 8,192 descriptors (the
-reference's default feature cap; 2,016 pairs), checked against the
-generator's true correspondences, against the plain version on 16 pairs
-and against the bounded-memory block mode.  Prints one line per phase,
-then a JSON
+port's paths through its CLI: ``bundle_adjuster`` on a seeded synthetic
+model at the line-BA benchmark's size (100 cameras, 20,000 points,
+120,000 observations), on the SoA solver (phase ``main``) and on the
+dense-block explicit-Schur solver (``PPSFM_BA_PATH=dense``, phase
+``dense_explicit``); ``bundle_adjuster`` with no override on a 1,280-camera
+global BA (100,000 points, 600,000 observations), which the mapper sends
+to the dense-block implicit solver (phase ``dense_implicit``); and
+``exhaustive_matcher`` on a seeded synthetic database of 64 images x 8,192
+descriptors (the reference's default feature cap; 2,016 pairs), checked
+against the generator's true correspondences, against the plain version
+on 16 pairs and against the bounded-memory block mode.  Prints one line
+per phase and each phase's seconds, then a JSON
 line with each kernel's launches, error and times, the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed phase
@@ -38,11 +42,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # K = 128 global, and the 512 < C <= 1024 blocked regime).
 GRAM_SHAPES = [(6, 20000, 100), (16, 20000, 100), (128, 8192, 320),
                (8, 16384, 640)]
+# (K, P, C) for the AoS Gram checks: the dense explicit path's shape,
+# the TPU kernel's K and C ceilings; then a ragged problem (tracks of
+# 2..RAGGED[0] slots, padding slots at camera -1).
+GRAM_AOS_SHAPES = [(6, 20000, 100), (16, 20000, 100), (8, 16384, 256)]
+RAGGED = (32, 20000, 100)
 PCG_CAMS = [100, 320, 640]
 CG_ITERS = 30
 MAIN = dict(num_images=100, num_points=20000, obs_per_point=6,
             meas_noise=2e-4)
 LM_ITERS = 20
+# A global BA past the explicit-Schur ceiling of 1,024 cameras, the size
+# of a 1DSfM collection (Madrid Metropolis: 1,344 images); the CLI's
+# default cap of 100 LM iterations.
+IMPLICIT = dict(num_images=1280, num_points=100000, obs_per_point=6,
+                meas_noise=2e-4)
 # (B, N1, N2, special) for the match kernel checks: the production shape
 # (the reference's max_num_features = 8192), padding with duplicates and
 # ties, and an N1 that is not a multiple of 128.
@@ -77,6 +91,14 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase(name, f"phase done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def card_line():
@@ -174,6 +196,122 @@ def phase_gram(device, reps=5):
     return main_stats, grams
 
 
+def aos_inputs(K, P, C, dtype, device, seed, ragged=False):
+    """Random AoS Gram inputs; every point sees K distinct cameras, or,
+    with ``ragged``, 2..K of them and padding slots (camera -1, zero
+    blocks) for the rest."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    LH = torch.randn(P, K, 3, 6, generator=g, device=device, dtype=dtype)
+    gL = torch.randn(P, 3, generator=g, device=device, dtype=dtype)
+    cam = torch.rand(P, C, generator=g, device=device).argsort(dim=1)
+    cam = cam[:, :K].to(torch.int32)
+    if ragged:
+        n = torch.randint(2, K + 1, (P, 1), generator=g, device=device)
+        pad = torch.arange(K, device=device)[None, :] >= n
+        cam[pad] = -1
+        LH[pad] = 0.0
+    return LH, gL, cam.contiguous()
+
+
+def phase_gram_aos(device, card, reps=5):
+    """AoS Gram kernel vs gram_aos_plain at the dense explicit path's
+    shape, the TPU kernel's K and C ceilings and a ragged problem; bf16
+    mode and the SoA kernel at the first shape.  Returns the first shape's
+    float32 stats."""
+    import torch
+
+    from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    shapes = [(K, P, C, False) for K, P, C in GRAM_AOS_SHAPES]
+    shapes.append(RAGGED + (True,))
+    main_stats = None
+    for K, P, C, ragged in shapes:
+        LH, gL, cam = aos_inputs(K, P, C, torch.float64, device, seed=C + K,
+                                 ragged=ragged)
+        S_ref, r_ref = schur_pcg.gram_aos_plain(LH, gL, cam, C)
+        s_scale = float(S_ref.abs().max())
+        r_scale = float(r_ref.abs().max())
+        what = f"K={K} P={P} C={C}"
+        if ragged:
+            what += (f" ragged (2..{K} slots a point, "
+                     f"{int((cam >= 0).sum())} observations)")
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+            a, b = LH.to(dtype), gL.to(dtype)
+            S, r = schur_pcg.gram_aos(a, b, cam, C)
+            S2, r2 = schur_pcg.gram_aos(a, b, cam, C)
+            torch.cuda.synchronize()
+            err_s = float((S.double() - S_ref).abs().max())
+            err_r = float((r.double() - r_ref).abs().max())
+            asym = float((S - S.T).abs().max())
+            bit_equal = torch.equal(S, S2) and torch.equal(r, r2)
+            ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C), reps)
+            plain_ms = cuda_ms(
+                lambda: schur_pcg.gram_aos_plain(a, b, cam, C), reps)
+            name = str(dtype).replace("torch.", "")
+            phase("gram_aos", f"{what} {name}: max|dS|={err_s:.3e} "
+                  f"(tol {tol * s_scale:.3e}) max|drhs|={err_r:.3e} "
+                  f"(tol {tol * r_scale:.3e}) max|S-S^T|={asym:.3e} "
+                  f"bit-equal={bit_equal} kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms | {card}")
+            check(err_s <= tol * s_scale, "AoS Gram S disagrees")
+            check(err_r <= tol * r_scale, "AoS Gram rhs disagrees")
+            check(asym <= 1e-6 * s_scale, "AoS Gram S not symmetric")
+            check(bit_equal, "AoS Gram kernel not deterministic")
+            if main_stats is None and dtype == torch.float32:
+                main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms)
+        if (K, P, C, ragged) == shapes[0]:
+            phase_gram_bf16(a, b, cam, C, card, reps)
+        del LH, gL, S_ref
+        torch.cuda.empty_cache()
+    return main_stats
+
+
+def phase_gram_bf16(a, b, cam, C, card, reps):
+    """bf16 mode of the AoS kernel against its plain version (the same
+    rounding on both sides: only the sum order differs), and the SoA
+    kernel on the same float32 blocks."""
+    import torch
+
+    from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    P, K = cam.shape
+    S_ref, r_ref = schur_pcg.gram_aos_plain(a, b, cam, C, "bf16")
+    S, r = schur_pcg.gram_aos(a, b, cam, C, "bf16")
+    S2, r2 = schur_pcg.gram_aos(a, b, cam, C, "bf16")
+    torch.cuda.synchronize()
+    s_scale = float(S_ref.abs().max())
+    err_s = float((S - S_ref).abs().max())
+    err_r = float((r - r_ref).abs().max())
+    asym = float((S - S.T).abs().max())
+    bit_equal = torch.equal(S, S2) and torch.equal(r, r2)
+    ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C, "bf16"), reps)
+    plain_ms = cuda_ms(
+        lambda: schur_pcg.gram_aos_plain(a, b, cam, C, "bf16"), reps)
+    phase("gram_aos", f"K={K} P={P} C={C} bf16 operands: max|dS|="
+          f"{err_s:.3e} (tol {1e-4 * s_scale:.3e}) max|drhs|={err_r:.3e} "
+          f"(tol {1e-4 * float(r_ref.abs().max()):.3e}) max|S-S^T|="
+          f"{asym:.3e} bit-equal={bit_equal} kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms | {card}")
+    check(err_s <= 1e-4 * s_scale, "bf16 AoS Gram S disagrees")
+    check(err_r <= 1e-4 * float(r_ref.abs().max()),
+          "bf16 AoS Gram rhs disagrees")
+    check(asym <= 1e-6 * s_scale, "bf16 AoS Gram S not symmetric")
+    check(bit_equal, "bf16 AoS Gram kernel not deterministic")
+    lh_stack = a.permute(2, 3, 1, 0).reshape(18 * K, P).contiguous()
+    gl, cam_kp = b.T.contiguous(), cam.T.contiguous()
+    S_soa, r_soa = schur_pcg.gram_soa(lh_stack, gl, cam_kp, C)
+    S_aos, r_aos = schur_pcg.gram_aos(a, b, cam, C)
+    same = torch.equal(S_soa, S_aos) and torch.equal(r_soa, r_aos)
+    soa_ms = cuda_ms(lambda: schur_pcg.gram_soa(lh_stack, gl, cam_kp, C),
+                     reps)
+    aos_ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C), reps)
+    phase("gram_aos", f"K={K} P={P} C={C} float32, same blocks: AoS kernel "
+          f"{aos_ms:.4f} ms, SoA kernel {soa_ms:.4f} ms, outputs "
+          f"bit-equal={same} | {card}")
+
+
 def pcg_system(S_corr, C, device, seed):
     """A damped SPD system from a Gram, padded with identity to
     padded_dim(C), with its block-Jacobi preconditioner and a rhs."""
@@ -225,7 +363,6 @@ def phase_pcg(device, grams, reps=5):
 
 
 def phase_main_path(device, card, workdir):
-    import numpy as np
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
@@ -290,17 +427,7 @@ def phase_main_path(device, card, workdir):
         check(launches[name] > 0,
               f"kernel {name} was not launched by the main path")
 
-    out = Reconstruction.read_text(out_dir)
-    check(out.num_registered() == MAIN["num_images"], "images lost")
-    finite = all(np.isfinite(img.qvec).all() and np.isfinite(img.tvec).all()
-                 for img in out.images.values())
-    finite &= all(np.isfinite(p.xyz).all() for p in out.points3d.values())
-    check(finite, "non-finite pose or point in the output model")
-    check(len(out.points3d) == MAIN["num_points"], "points lost")
-    err_out = line_error_sum(out)
-    phase("main", f"squared pixel line error sum {err_in!r} -> {err_out!r} "
-          f"(ratio {err_out / err_in:.4f}, must be <= 0.5)")
-    check(err_out <= 0.5 * err_in, "BA did not halve the line error")
+    check_output_model(out_dir, MAIN, err_in, "main")
 
     # The same problem in float64 through the plain Gram and PCG.
     rec = Reconstruction.read_text(in_dir)
@@ -321,6 +448,181 @@ def phase_main_path(device, card, workdir):
           f"{rel:.3e} (tol 1e-3); initial cost {summary.initial_cost!r}")
     check(rel <= 1e-3, "final cost disagrees with the float64 plain run")
     return launches
+
+
+def check_output_model(out_dir, cfg, err_in, name):
+    """The output model keeps every image and point, all finite, and the
+    BA at least halved the line error."""
+    import numpy as np
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import line_error_sum
+
+    out = Reconstruction.read_text(out_dir)
+    check(out.num_registered() == cfg["num_images"], "images lost")
+    check(len(out.points3d) == cfg["num_points"], "points lost")
+    finite = all(np.isfinite(img.qvec).all() and np.isfinite(img.tvec).all()
+                 for img in out.images.values())
+    finite &= all(np.isfinite(p.xyz).all() for p in out.points3d.values())
+    check(finite, "non-finite pose or point in the output model")
+    err_out = line_error_sum(out)
+    phase(name, f"squared pixel line error sum {err_in!r} -> {err_out!r} "
+          f"(ratio {err_out / err_in:.4f}, must be <= 0.5)")
+    check(err_out <= 0.5 * err_in, "BA did not halve the line error")
+
+
+def run_bundle_adjuster(device, in_dir, out_dir, env, extra=()):
+    """``bundle_adjuster`` through the CLI in float32 with the environment
+    variables ``env`` set (None: unset) and restored after, launch counts
+    set to 0 just before; returns (mapper, launches, wall s, peak bytes)."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        for name in build.LAUNCHES:
+            build.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mapper = ppsfm.main(["bundle_adjuster", "--input_path", in_dir,
+                             "--output_path", out_dir, "--device",
+                             device.type, "--dtype", "float32", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return mapper, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def float64_cost(device, in_dir, options):
+    """Final cost and iterations of the float64 dense-block solve of the
+    same problem on the card, Gram and PCG in their plain versions."""
+    import torch
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.optim import ba_dense
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+
+    rec = Reconstruction.read_text(in_dir)
+    rec.filter_observations_with_negative_depth()
+    ref = IncrementalMapper(device, torch.float64)
+    ref.begin_reconstruction(rec)
+    reg = rec.reg_image_ids
+    asm = ref.assemble_ba(reg, {reg[0]}, {reg[1]})
+    t0 = time.perf_counter()
+    _, _, _, s64 = ba_dense.bundle_adjust_dense(
+        ba_dense.from_flat_problem(asm.problem), asm.camera_model, options,
+        plain=True)
+    torch.cuda.synchronize()
+    return s64, time.perf_counter() - t0
+
+
+def report_solve(name, mapper, launches, wall, peak, nobs, card):
+    s = mapper.last_summary
+    solve_s = mapper.phase_times["ba_solve"]
+    phase(name, f"route {tuple(mapper.last_route)}: wall {wall:.3f} s, "
+          f"ba_assemble {mapper.phase_times['ba_assemble']:.3f} s, "
+          f"ba_solve {solve_s:.3f} s, LM iterations {s.num_iterations}, "
+          f"{nobs * s.num_iterations / solve_s:.1f} obs*iter/s (ba_solve), "
+          f"peak device memory {peak / 2**20:.1f} MiB, launches {launches} "
+          f"| {card}")
+
+
+def compare_float64(name, summary, s64, dt):
+    rel = abs(summary.final_cost - s64.final_cost) / s64.final_cost
+    phase(name, f"final cost float32 {summary.final_cost!r} vs float64 "
+          f"{s64.final_cost!r} ({s64.num_iterations} LM iterations, "
+          f"{dt:.3f} s): rel diff {rel:.3e} (tol 1e-3); initial cost "
+          f"{summary.initial_cost!r}")
+    check(rel <= 1e-3, "final cost disagrees with the float64 run")
+
+
+def phase_dense_explicit(device, card, workdir):
+    """The main phase's model through ``PPSFM_BA_PATH=dense``: the dense
+    solver's explicit Schur, with the AoS Gram and PCG kernels."""
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.utils.synthetic import line_error_sum
+
+    in_dir = os.path.join(workdir, "in")  # written by phase_main_path
+    start = Reconstruction.read_text(in_dir)
+    mapper, launches, wall, peak = run_bundle_adjuster(
+        device, in_dir, os.path.join(workdir, "out_dense"),
+        {"PPSFM_BA_PATH": "dense", "PPSFM_SCHUR_MODE": None},
+        ["--max_num_iterations", str(LM_ITERS)])
+    report_solve("dense_explicit", mapper, launches, wall, peak,
+                 start.num_observations(), card)
+    check(mapper.last_route.solver == "dense" and mapper.last_route.explicit,
+          "PPSFM_BA_PATH=dense did not take the dense explicit route")
+    for name in ("schur_gram_aos", "schur_pcg"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the dense explicit path")
+    check(launches["schur_gram"] == 0,
+          "the dense explicit path launched the SoA Gram")
+    check_output_model(os.path.join(workdir, "out_dense"), MAIN,
+                       line_error_sum(start), "dense_explicit")
+    s64, dt = float64_cost(device, in_dir, ba_mod.BAOptions(
+        max_iterations=LM_ITERS, schur_mode="explicit"))
+    compare_float64("dense_explicit", mapper.last_summary, s64, dt)
+    return launches
+
+
+def phase_dense_implicit(device, card, workdir):
+    """A 1,280-camera global BA with no override: the mapper sends it to
+    the dense solver's implicit CG, which runs no Schur kernel."""
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        line_error_sum, synthetic_model,
+    )
+
+    t0 = time.perf_counter()
+    in_dir = os.path.join(workdir, "in")
+    out_dir = os.path.join(workdir, "out")
+    synthetic_model(seed=3, **IMPLICIT).write_text(in_dir)
+    start = Reconstruction.read_text(in_dir)
+    nobs = start.num_observations()
+    phase("dense_implicit", f"synthetic model: {start.num_registered()} "
+          f"images, {len(start.points3d)} points, {nobs} observations, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    mapper, launches, wall, peak = run_bundle_adjuster(
+        device, in_dir, out_dir,
+        {"PPSFM_BA_PATH": None, "PPSFM_SCHUR_MODE": None})
+    report_solve("dense_implicit", mapper, launches, wall, peak, nobs, card)
+    check(mapper.last_route.solver == "dense"
+          and not mapper.last_route.explicit,
+          "a 1,280-camera BA did not take the dense implicit route")
+    check(sum(launches.values()) == 0, "a kernel ran on the implicit route")
+    phase("dense_implicit", "no Schur kernel runs on this route (the "
+          "implicit CG never forms S): launches all 0, as expected")
+    check_output_model(out_dir, IMPLICIT, line_error_sum(start),
+                       "dense_implicit")
+    s64, dt = float64_cost(device, in_dir, ba_mod.BAOptions(
+        max_iterations=100, schur_mode="implicit"))
+    compare_float64("dense_implicit", mapper.last_summary, s64, dt)
 
 
 def match_inputs(b, n1, n2, special, device, seed):
@@ -520,18 +822,27 @@ def main() -> int:
     torch.cuda.set_device(device)
     try:
         card = phase_device()
-        phase_build()
-        gram_stats, grams = phase_gram(device)
-        pcg_stats = phase_pcg(device, grams)
+        timed("build", phase_build)
+        gram_stats, grams = timed("gram", phase_gram, device)
+        pcg_stats = timed("pcg", phase_pcg, device, grams)
         del grams
         torch.cuda.empty_cache()
+        gram_aos_stats = timed("gram_aos", phase_gram_aos, device, card)
         with tempfile.TemporaryDirectory() as workdir:
-            launches = phase_main_path(device, card, workdir)
+            launches = timed("main", phase_main_path, device, card, workdir)
+            launches["schur_gram_aos"] = timed(
+                "dense_explicit", phase_dense_explicit, device, card,
+                workdir)["schur_gram_aos"]
         torch.cuda.empty_cache()
-        match_stats = phase_match(device, card)
+        match_stats = timed("match", phase_match, device, card)
         with tempfile.TemporaryDirectory() as workdir:
-            launches["match_top2"] = phase_matcher(
-                device, card, workdir)["match_top2"]
+            launches["match_top2"] = timed(
+                "matcher", phase_matcher, device, card,
+                workdir)["match_top2"]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            timed("dense_implicit", phase_dense_implicit, device, card,
+                  workdir)
     except Exception:  # every phase failure ends the run with no result
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
@@ -549,6 +860,9 @@ def main() -> int:
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",
              launches=launches["match_top2"], **match_stats),
+        dict(name="schur_gram_aos", route="cuda",
+             source=src + "schur_gram.cu", replaces=f"{ref}:256",
+             launches=launches["schur_gram_aos"], **gram_aos_stats),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

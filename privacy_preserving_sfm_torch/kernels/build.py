@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Launch counts by kernel name; callers may reset them to 0.
-LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_pcg": 0,
-                             "match_top2": 0}
+LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_gram_aos": 0,
+                             "schur_pcg": 0, "match_top2": 0}
 
 # Capacity of the PCG kernel's per-block partial sums (its grid is one
 # persistent block per resident slot, at most this many).
@@ -102,9 +102,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"ppsfm_schur_gram_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        fn.restype = ci
+        for layout in ("", "aos_"):
+            fn = getattr(lib, f"ppsfm_schur_gram_{layout}{suffix}")
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
         fn = getattr(lib, f"ppsfm_schur_pcg_{suffix}")
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
@@ -133,21 +134,42 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def launch_schur_gram(lh: torch.Tensor, gl: torch.Tensor, cam: torch.Tensor,
-                      order: torch.Tensor, offsets: torch.Tensor,
-                      S: torch.Tensor, rhs: torch.Tensor, cam_block: int):
-    """Launch ``schur_gram.cu``: S (6C, 6C) and rhs (6C,) from lh (18K, P),
-    gl (3, P), cam (K, P) int32 and the camera-sorted observation list
-    (order, offsets) int32.  The caller has checked shapes and types."""
-    K, P = cam.shape
+def _launch_gram(name: str, K: int, P: int, lh, gl, cam, order, offsets,
+                 S, rhs, cam_block: int, bf16: bool):
     C = offsets.shape[0] - 1
-    fn = getattr(library(), f"ppsfm_schur_gram_{_suffix(lh)}")
+    fn = getattr(library(), f"ppsfm_{name}_{_suffix(lh)}")
     with torch.cuda.device(lh.device):
         err = fn(lh.data_ptr(), gl.data_ptr(), cam.data_ptr(),
                  order.data_ptr(), offsets.data_ptr(), S.data_ptr(),
-                 rhs.data_ptr(), K, P, C, cam_block, _stream(lh))
-    _check("schur_gram", err)
-    LAUNCHES["schur_gram"] += 1
+                 rhs.data_ptr(), K, P, C, cam_block, int(bf16), _stream(lh))
+    _check(name, err)
+    LAUNCHES[name] += 1
+
+
+def launch_schur_gram(lh: torch.Tensor, gl: torch.Tensor, cam: torch.Tensor,
+                      order: torch.Tensor, offsets: torch.Tensor,
+                      S: torch.Tensor, rhs: torch.Tensor, cam_block: int,
+                      bf16: bool = False):
+    """Launch ``schur_gram.cu`` on the SoA layout: S (6C, 6C) and rhs (6C,)
+    from lh (18K, P), gl (3, P), cam (K, P) int32 and the camera-sorted
+    observation list (order, offsets) int32; ``bf16`` rounds the S
+    operands to bfloat16.  The caller has checked shapes and types."""
+    K, P = cam.shape
+    _launch_gram("schur_gram", K, P, lh, gl, cam, order, offsets, S, rhs,
+                 cam_block, bf16)
+
+
+def launch_schur_gram_aos(lh: torch.Tensor, gl: torch.Tensor,
+                          cam: torch.Tensor, order: torch.Tensor,
+                          offsets: torch.Tensor, S: torch.Tensor,
+                          rhs: torch.Tensor, cam_block: int,
+                          bf16: bool = False):
+    """Launch ``schur_gram.cu`` on the AoS layout: lh (P, K, 3, 6), gl
+    (P, 3), cam (P, K) int32; otherwise as ``launch_schur_gram`` (the
+    order list still holds slot ids k*P + p)."""
+    P, K = cam.shape
+    _launch_gram("schur_gram_aos", K, P, lh, gl, cam, order, offsets, S,
+                 rhs, cam_block, bf16)
 
 
 def launch_schur_pcg(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,

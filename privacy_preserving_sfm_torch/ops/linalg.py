@@ -1,7 +1,8 @@
 """Closed-form 3x3 kernels (batched torch), as BA needs them.
 
-Port of ``privacy_preserving_sfm_tpu/ops/linalg.py:20-62``: explicit
-cofactor forms that broadcast over leading batch dimensions.
+Port of ``privacy_preserving_sfm_tpu/ops/linalg.py:20-83``: explicit
+cofactor forms and the closed-form Cholesky factor, broadcast over leading
+batch dimensions.
 """
 
 from __future__ import annotations
@@ -37,3 +38,23 @@ def inv3(A: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     e = det.new_full((), eps)
     det = torch.where(det.abs() < eps, torch.where(det < 0, -e, e), det)
     return adjugate3(A) / det[..., None, None]
+
+
+def chol3(A: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Closed-form Cholesky of batched SPD 3x3: A = L L^T, L lower.
+
+    Reads only the lower triangle.  Pivots are clamped at ``eps``, so
+    singular or padded blocks give finite (meaningless) factors instead of
+    NaNs; callers mask them.
+    """
+    l00 = torch.sqrt(A[..., 0, 0].clamp_min(eps))
+    l10 = A[..., 1, 0] / l00
+    l20 = A[..., 2, 0] / l00
+    l11 = torch.sqrt((A[..., 1, 1] - l10 * l10).clamp_min(eps))
+    l21 = (A[..., 2, 1] - l20 * l10) / l11
+    l22 = torch.sqrt((A[..., 2, 2] - l20 * l20 - l21 * l21).clamp_min(eps))
+    z = torch.zeros_like(l00)
+    return torch.stack([
+        torch.stack([l00, z, z], -1),
+        torch.stack([l10, l11, z], -1),
+        torch.stack([l20, l21, l22], -1)], -2)

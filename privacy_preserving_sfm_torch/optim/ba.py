@@ -1,9 +1,9 @@
-"""Point-to-line bundle adjustment: problem layout, options, shared pieces.
+"""Point-to-line bundle adjustment: problem layout, options, flat solver.
 
-Port of ``privacy_preserving_sfm_tpu/optim/ba.py:46-228, 440-455``: the
-containers and helpers the explicit-Schur solver (``optim/ba_soa.py``)
-needs.  The flat implicit-Schur solver ``bundle_adjust`` is not ported yet
-(ROADMAP.md Queue 1 #8).
+Port of ``privacy_preserving_sfm_tpu/optim/ba.py``: the containers and
+helpers every solver shares, the LM loop of the flat and dense-block
+solvers, and the flat implicit-Schur solver ``bundle_adjust``
+(reference ``:229-437``), which the mapper runs on the CPU.
 
 Problem layout:
 
@@ -12,16 +12,29 @@ Problem layout:
                gauge fixing = zeroed mask entries.
   points   P:  points3d (P, 3), point mask (P,) (variable vs constant).
   obs      O:  camera index, point index, line (O, 3), weight (O,).
+
+The flat solver reduces per-observation blocks into the C camera and P
+point bins with ``index_add_`` (the reference's ``segment_sum``).  On a
+CUDA device ``index_add_`` sums with atomics, in an order that changes
+from run to run, so float32 results vary in their last bits between runs;
+the reduced 3x3 and 6x6 blocks are symmetrized so that this never breaks
+their symmetry, and on the card an LM run can take another accept/reject
+path, and so another iteration count, from one run to the next.  The flat
+and dense solvers read their options as given, as their references do
+(``ba_soa`` rounds its options through float32, as its reference does).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.func import jacfwd, vmap
+from torch.profiler import record_function
 
-from privacy_preserving_sfm_torch.ops import lie, linalg
+from privacy_preserving_sfm_torch.ops import lie, linalg, lines as line_ops
 
 
 class BAProblem(NamedTuple):
@@ -51,6 +64,14 @@ class BAOptions(NamedTuple):
     # Give up after this many consecutive rejected steps (each grows
     # lambda 4x: the solve is at a numerical local minimum).
     max_consecutive_rejections: int = 8
+    # Dense-block solver only: "explicit" materializes the reduced camera
+    # system and solves it with the PCG kernel, "implicit" runs the
+    # matrix-free CG, "auto" picks explicit on CUDA when C <= 1024
+    # (``ba_dense.uses_explicit``).
+    schur_mode: str = "auto"
+    # Explicit Schur only: "bf16" rounds the Schur Gram's operands to
+    # bfloat16 (sums stay in the problem's precision); "f32" keeps them.
+    schur_precision: str = "f32"
     # Intrinsics refinement (reference BundleAdjustmentOptions.refine_*);
     # the port's mapper refuses them until ``ba_intrinsics`` is ported.
     refine_focal_length: bool = False
@@ -155,3 +176,237 @@ def _inv6(A: torch.Tensor) -> torch.Tensor:
     top = torch.cat([B11, B12], dim=-1)
     bot = torch.cat([B21, Si], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def _sym(A: torch.Tensor) -> torch.Tensor:
+    """Mean of A and its transpose: exact on the CPU, where ``index_add_``
+    sums both triangles in one order; restores symmetry under CUDA
+    atomics."""
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def _check_loss(loss: str):
+    if loss not in ("trivial", "soft_l1", "cauchy"):
+        raise ValueError(f"unknown loss {loss}")
+
+
+# ---------------------------------------------------------------------------
+# Residuals and Jacobians (all solvers)
+# ---------------------------------------------------------------------------
+
+
+def _residual(dc, dX, q, t, X, par, line, camera_model):
+    """Residual (2,) of one observation at the tangent step (dc, dX)."""
+    qq = lie.quat_multiply(q, _quat_delta(dc[:3]))
+    tt = t + dc[3:]
+    return line_ops.line_ba_residual(line, X + dX, qq, tt, camera_model, par)
+
+
+def _residual_and_jacobians(q, t, X, par, line, camera_model):
+    """r (2,), J_camera (2, 6), J_point (2, 3) of one observation."""
+    def f(dc, dX):
+        r = _residual(dc, dX, q, t, X, par, line, camera_model)
+        return r, r
+
+    (Jc, Jp), r = jacfwd(f, argnums=(0, 1), has_aux=True)(
+        q.new_zeros(6), q.new_zeros(3))
+    return r, Jc, Jp
+
+
+def residuals_and_jacobians(q_o, t_o, X_o, par_o, line_o, camera_model):
+    """Batched over observations: r (N, 2), Jc (N, 2, 6), Jp (N, 2, 3)."""
+    fn = functools.partial(_residual_and_jacobians,
+                           camera_model=camera_model)
+    return vmap(fn)(q_o, t_o, X_o, par_o, line_o)
+
+
+# ---------------------------------------------------------------------------
+# LM loop and block-Jacobi CG (flat and dense-block solvers)
+# ---------------------------------------------------------------------------
+
+
+def block_jacobi_cg(matvec, SJ_inv: torch.Tensor, rhs: torch.Tensor,
+                    iters: int) -> torch.Tensor:
+    """``iters`` steps of CG on S x = rhs (C, 6), preconditioned by the
+    inverse diagonal blocks SJ_inv (C, 6, 6); no host synchronisation."""
+    def guard(v):
+        return torch.where(v.abs() < 1e-30, v.new_full((), 1e-30), v)
+
+    def precond(v):
+        return torch.einsum("cij,cj->ci", SJ_inv, v)
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    p = precond(rhs)
+    rz = torch.sum(r * p)
+    for _ in range(iters):
+        Ap = matvec(p)
+        alpha = rz / guard(torch.sum(p * Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        p = z + (rz_new / guard(rz)) * p
+        rz = rz_new
+    return x
+
+
+def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
+                        solve_step):
+    """The LM loop of the reference's ``ba.bundle_adjust`` and
+    ``ba_dense.bundle_adjust_dense`` (``ba.py:359-423``).
+
+    ``cost_fn(q, t, X)`` is the robust cost; ``build_normal(q, t, X)``
+    returns the normal equations as a tuple ending in (gc (C, 6),
+    gp (P, 3)); ``solve_step(normal, lam)`` returns the descent steps
+    (dc (C, 6), dp (P, 3)).  The normal equations are rebuilt only after
+    an accepted step (Ceres keeps the Jacobian across rejected ones).  The
+    loop reads the accept flag on the host once per iteration.  Returns
+    (qvecs, tvecs, points3d, BASummary).
+    """
+    mask = problem.cam_dof_mask
+    pmask = problem.point_mask[:, None]
+    q, t, X = problem.qvecs, problem.tvecs, problem.points3d
+    cost0 = cost_fn(q, t, X)
+    c = cost0
+    lam = float(options.initial_lambda)
+    it = stall = rej = 0
+    rebuild = True
+    normal = None
+    while (it < options.max_iterations and stall < 2
+           and lam < options.max_lambda * 0.99):
+        if rebuild:
+            normal = build_normal(q, t, X)
+        grad_done = False
+        if options.gradient_tolerance > 0:
+            gc, gp = normal[-2:]
+            g_max = torch.maximum((gc * mask).abs().max(),
+                                  (gp * pmask).abs().max())
+            grad_done = bool(g_max <= options.gradient_tolerance)
+        dc, dp = solve_step(normal, lam)
+        q_new, t_new, X_new = _apply_step(q, t, X, -(dc * mask),
+                                          -(dp * pmask))
+        c_new = cost_fn(q_new, t_new, X_new)
+        accept = bool(c_new < c)
+        rel = float((c - c_new) / torch.clamp_min(c, 1e-30))
+        if accept:
+            q, t, X, c = q_new, t_new, X_new, c_new
+            lam = max(lam / 3.0, options.min_lambda)
+        else:
+            lam = min(lam * 4.0, options.max_lambda)
+        if accept and rel < options.function_tolerance:
+            stall += 1
+        elif accept:
+            stall = 0
+        if grad_done:
+            stall = 2
+        rej = 0 if accept else rej + 1
+        if rej >= options.max_consecutive_rejections:
+            stall = 2
+        rebuild = accept
+        it += 1
+    summary = BASummary(initial_cost=float(cost0), final_cost=float(c),
+                        num_iterations=it, lam=lam)
+    return q, t, X, summary
+
+
+# ---------------------------------------------------------------------------
+# Flat implicit-Schur solver
+# ---------------------------------------------------------------------------
+
+
+def _residuals_and_jacobians(problem: BAProblem, qvecs, tvecs, points,
+                             camera_model: str):
+    """Per-observation residual (O, 2), J_cam (O, 2, 6), J_pt (O, 2, 3)."""
+    oc, op = problem.obs_cam, problem.obs_point
+    r, Jc, Jp = residuals_and_jacobians(
+        qvecs[oc], tvecs[oc], points[op], problem.cam_params[oc],
+        problem.obs_line, camera_model)
+    Jc = Jc * problem.cam_dof_mask[oc][:, None, :]  # freeze masked dofs
+    Jp = Jp * problem.point_mask[op][:, None, None]
+    return r, Jc, Jp
+
+
+def _cost(problem: BAProblem, qvecs, tvecs, points, camera_model: str,
+          loss: str, loss_scale: float) -> torch.Tensor:
+    oc, op = problem.obs_cam, problem.obs_point
+    r = line_ops.line_ba_residual(
+        problem.obs_line, points[op], qvecs[oc], tvecs[oc], camera_model,
+        problem.cam_params[oc])
+    sq = torch.sum(r * r, dim=-1)
+    return 0.5 * torch.sum(_robust_cost(sq, loss, loss_scale)
+                           * problem.obs_weight)
+
+
+def _bins(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Sum of ``values`` rows into ``n`` bins by ``index``."""
+    return values.new_zeros((n,) + values.shape[1:]).index_add_(
+        0, index, values)
+
+
+def damped(H: torch.Tensor, lam: float) -> torch.Tensor:
+    """LM damping of (..., d, d) blocks: H + lam diag(H) + 1e-12 I."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return H + lam * torch.diag_embed(
+        torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-12 * eye
+
+
+def bundle_adjust(problem: BAProblem, camera_model: str,
+                  options: BAOptions = BAOptions()):
+    """Implicit-Schur LM on the flat problem; returns (qvecs, tvecs,
+    points3d, BASummary).  ``torch.profiler`` sees the spans
+    ``ba.build_normal`` and ``ba.solve_step``."""
+    C = problem.qvecs.shape[0]
+    P = problem.points3d.shape[0]
+    oc, op = problem.obs_cam, problem.obs_point
+    loss, scale = options.loss, options.loss_scale
+    _check_loss(loss)
+    eye6 = torch.eye(6, dtype=problem.points3d.dtype,
+                     device=problem.points3d.device)
+
+    def cost_fn(q, t, X):
+        return _cost(problem, q, t, X, camera_model, loss, scale)
+
+    @record_function("ba.build_normal")
+    def build_normal(q, t, X):
+        r, Jc, Jp = _residuals_and_jacobians(problem, q, t, X, camera_model)
+        sq = torch.sum(r * r, dim=-1)
+        w = _robust_weight(sq, loss, scale) * problem.obs_weight  # (O,)
+        Hcc_o = torch.einsum("ori,orj,o->oij", Jc, Jc, w)
+        Hpp_o = torch.einsum("ori,orj,o->oij", Jp, Jp, w)
+        Hcp_o = torch.einsum("ori,orj,o->oij", Jc, Jp, w)  # (O, 6, 3)
+        gc_o = torch.einsum("ori,or,o->oi", Jc, r, w)
+        gp_o = torch.einsum("ori,or,o->oi", Jp, r, w)
+        return (_sym(_bins(C, oc, Hcc_o)), _sym(_bins(P, op, Hpp_o)), Hcp_o,
+                _bins(C, oc, gc_o), _bins(P, op, gp_o))
+
+    @record_function("ba.solve_step")
+    def solve_step(normal, lam):
+        Hcc, Hpp, Hcp_o, gc, gp = normal
+        dHcc = damped(Hcc, lam)
+        Hpp_inv = linalg.inv3(damped(Hpp, lam))  # (P, 3, 3)
+
+        def S_matvec(v):  # v: (C, 6)
+            Etv = _bins(P, op, torch.einsum("oji,oj->oi", Hcp_o, v[oc]))
+            y = torch.einsum("pij,pj->pi", Hpp_inv, Etv)
+            Ey = _bins(C, oc, torch.einsum("oij,oj->oi", Hcp_o, y[op]))
+            return torch.einsum("cij,cj->ci", dHcc, v) - Ey
+
+        # RHS g_c - E Hpp^-1 g_p and the Schur-Jacobi preconditioner.
+        y0 = torch.einsum("pij,pj->pi", Hpp_inv, gp)
+        rhs = gc - _bins(C, oc, torch.einsum("oij,oj->oi", Hcp_o, y0[op]))
+        SJ_o = torch.einsum("oij,ojk,olk->oil", Hcp_o, Hpp_inv[op], Hcp_o)
+        SJ_inv = _inv6(dHcc - _bins(C, oc, SJ_o) + 1e-12 * eye6)
+        dc = _finite_or_zero(block_jacobi_cg(S_matvec, SJ_inv, rhs,
+                                             options.cg_iterations))
+        # Back-substitution: dp = Hpp^-1 (gp - E^T dc).
+        Etdc = _bins(P, op, torch.einsum("oji,oj->oi", Hcp_o, dc[oc]))
+        dp = torch.einsum("pij,pj->pi", Hpp_inv, gp - Etdc)
+        return dc, _finite_or_zero(dp)
+
+    return levenberg_marquardt(problem, options, cost_fn, build_normal,
+                               solve_step)

@@ -11,7 +11,8 @@ masks as the reference; per LM iteration:
    per-observation Hcp (K, P, 6, 3), per-camera Hcc (C, 6, 6), gc (C, 6);
 2. points eliminated in closed form: with L = chol(Hpp_damped^-1), the
    blocks LH = L^T Hcp go to the Schur Gram ``schur_pcg.gram_soa``, which
-   returns S_corr = V^T V and rhs_corr;
+   returns S_corr = V^T V and rhs_corr (in ``options.schur_precision``;
+   padding slots reach it with camera id -1, so its kernel skips them);
 3. the reduced camera system S = dHcc - S_corr (dense, identity-padded to
    ``padded_dim(C)``) is solved by ``schur_pcg.pcg`` with the block-Jacobi
    preconditioner, and the point steps are back-substituted.
@@ -30,40 +31,11 @@ iteration (and the gradient norm, when a gradient tolerance is set).
 
 from __future__ import annotations
 
-import functools
-
 import torch
-from torch.func import jacfwd, vmap
 from torch.profiler import record_function
 
-from privacy_preserving_sfm_torch.ops import lie, lines as line_ops
 from privacy_preserving_sfm_torch.optim import ba as ba_mod
 from privacy_preserving_sfm_torch.optim import ba_dense, schur_pcg
-
-
-def _residual(dc, dX, q, t, X, par, line, camera_model):
-    """Residual (2,) of one observation at the tangent step (dc, dX)."""
-    qq = lie.quat_multiply(q, ba_mod._quat_delta(dc[:3]))
-    tt = t + dc[3:]
-    return line_ops.line_ba_residual(line, X + dX, qq, tt, camera_model, par)
-
-
-def _residual_and_jacobians(q, t, X, par, line, camera_model):
-    """r (2,), J_camera (2, 6), J_point (2, 3) of one observation."""
-    def f(dc, dX):
-        r = _residual(dc, dX, q, t, X, par, line, camera_model)
-        return r, r
-
-    (Jc, Jp), r = jacfwd(f, argnums=(0, 1), has_aux=True)(
-        q.new_zeros(6), q.new_zeros(3))
-    return r, Jc, Jp
-
-
-def residuals_and_jacobians(q_o, t_o, X_o, par_o, line_o, camera_model):
-    """Batched over observations: r (N, 2), Jc (N, 2, 6), Jp (N, 2, 3)."""
-    fn = functools.partial(_residual_and_jacobians,
-                           camera_model=camera_model)
-    return vmap(fn)(q_o, t_o, X_o, par_o, line_o)
 
 
 def _chol3_comps(a11, a21, a31, a22, a32, a33):
@@ -98,22 +70,6 @@ def _sym3_matvec(m, x0, x1, x2):
             m31 * x0 + m32 * x1 + m33 * x2)
 
 
-def _embed_block_diag(blocks: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """(C, 6, 6) diagonal blocks -> dense (n_pad, n_pad), identity padding."""
-    C = blocks.shape[0]
-    n = 6 * C
-    out = blocks.new_zeros(n_pad, n_pad)
-    ar = torch.arange(C, device=blocks.device)
-    out[:n, :n].view(C, 6, C, 6)[ar, :, ar, :] = blocks
-    pad = torch.arange(n, n_pad, device=blocks.device)
-    out[pad, pad] = 1.0
-    return out
-
-
-def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-
-
 def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
                       options: ba_mod.BAOptions = ba_mod.BAOptions(),
                       *, plain: bool = False):
@@ -137,7 +93,9 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
 
     # ---- static observation-side tensors (once per solve) ----
     oc_kp = problem.obs_cam.T.contiguous()  # (K, P)
-    cam_kp32 = oc_kp.to(torch.int32)
+    # The Gram kernel skips negative camera ids: padding slots get -1.
+    cam_kp32 = torch.where(problem.obs_weight.T > 0, oc_kp, -1).to(
+        torch.int32)
     oc = oc_kp.reshape(-1)  # (K*P,), index k*P + p
     w_o = problem.obs_weight.T.reshape(-1).to(dtype)
     line_o = problem.obs_line.transpose(0, 1).reshape(-1, 3)
@@ -149,7 +107,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     @record_function("ba_soa.build_normal")
     def build_normal(q, t, X):
         """Robust cost and normal equations at (q, t, X)."""
-        r, Jc, Jp = residuals_and_jacobians(
+        r, Jc, Jp = ba_mod.residuals_and_jacobians(
             q[oc], t[oc], X.repeat(K, 1), par_o, line_o, camera_model)
         Jc = Jc * dof_o[:, None, :]  # freeze masked dofs
         Jp = Jp * pmask_o[:, None, None]  # and constant points
@@ -169,18 +127,14 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         hcc_o = (Jc[:, :, :, None] * Jc[:, :, None, :]).sum(1) \
             * w[:, None, None]
         gc_o = (Jc * r[:, :, None]).sum(1) * w[:, None]
-        Hcc = hcc_o.new_zeros(C, 6, 6).index_add_(0, oc, hcc_o)
-        # index_add_ may sum the two triangles in different orders (CUDA
-        # atomics); the mean restores exact symmetry and is exact on CPU.
-        Hcc = 0.5 * (Hcc + Hcc.transpose(1, 2))
-        gc = gc_o.new_zeros(C, 6).index_add_(0, oc, gc_o)
+        Hcc = ba_mod._sym(ba_mod._bins(C, oc, hcc_o))
+        gc = ba_mod._bins(C, oc, gc_o)
         return cost, (hpp, gp, hcp, Hcc, gc)
 
     @record_function("ba_soa.solve_step")
     def solve_step(normal, lam):
         hpp, gp, hcp, Hcc, gc = normal
-        dHcc = Hcc + lam * torch.diag_embed(
-            torch.diagonal(Hcc, dim1=-2, dim2=-1)) + 1e-12 * eye6
+        dHcc = ba_mod.damped(Hcc, lam)
         d11 = hpp[:, 0, 0] * (1.0 + lam) + 1e-12
         d22 = hpp[:, 1, 1] * (1.0 + lam) + 1e-12
         d33 = hpp[:, 2, 2] * (1.0 + lam) + 1e-12
@@ -201,24 +155,25 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
                           l33[:, 0] * g2])  # (3, P)
 
         with record_function("ba_soa.gram"):
-            S_corr, rhs_corr = gram(lh_stack, gL, cam_kp32, C)
+            S_corr, rhs_corr = gram(lh_stack, gL, cam_kp32, C,
+                                    options.schur_precision)
         rhs = gc.reshape(n) - rhs_corr
         SJ = dHcc - schur_pcg.diag_blocks(S_corr, C)
         SJ_inv = ba_mod._inv6(SJ + 1e-12 * eye6)
-        S = _embed_block_diag(dHcc, n_pad)
+        S = schur_pcg.embed_block_diag(dHcc, n_pad)
         S[:n, :n] -= S_corr
-        Minv = _embed_block_diag(SJ_inv, n_pad)
+        Minv = schur_pcg.embed_block_diag(SJ_inv, n_pad)
         rhs_p = torch.cat([rhs, rhs.new_zeros(n_pad - n)])
         with record_function("ba_soa.pcg"):
             dcf = pcg(S, Minv, rhs_p, options.cg_iterations)
-        dc = _finite_or_zero(dcf[:n].reshape(C, 6))
+        dc = ba_mod._finite_or_zero(dcf[:n].reshape(C, 6))
 
         # Back-substitution: dp = Hpp_inv (gp - E^T dc).
         dcg = dc[oc_kp]  # (K, P, 6)
         et = (hcp * dcg[..., None]).sum(2).sum(0)  # (P, 3)
         dp = torch.stack(_sym3_matvec(hinv, g0 - et[:, 0], g1 - et[:, 1],
                                       g2 - et[:, 2]), dim=-1)
-        return dc, _finite_or_zero(dp)
+        return dc, ba_mod._finite_or_zero(dp)
 
     q, t, X = problem.qvecs, problem.tvecs, problem.points3d
     cost0, normal = build_normal(q, t, X)

@@ -4,15 +4,20 @@ Port of the parts of ``privacy_preserving_sfm_tpu/sfm/incremental_mapper.py``
 that ``bundle_adjuster`` runs: ``begin_reconstruction`` (the model only),
 ``adjust_global_bundle``
 (gauge fix + Normalize, reference ``incremental_mapper.cc:893-939``) and
-``_run_ba`` on the explicit-Schur SoA solver.
+``_run_ba`` over the three solvers (``choose_ba_route``): the
+explicit-Schur SoA solver, the dense-block solver (explicit or implicit
+Schur) and the flat solver.
 
 The solve runs on the mapper's ``device`` in its ``dtype``.  Unlike the
 reference, the problem is not padded to bucketed shapes: those ladders
-bound XLA compile keys, and padded slots carry zero weight.
+bound XLA compile keys, and padded slots carry zero weight.  So the
+route's camera count is the true one, where the reference reads its
+bucketed count.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
@@ -26,6 +31,36 @@ from privacy_preserving_sfm_torch.optim import ba_dense, ba_soa, schur_pcg
 # Observations kept per point (semantics of the reference mapper: a
 # deterministic stride subset of longer tracks).
 MAX_OBS_PER_POINT = 128
+
+
+class BARoute(NamedTuple):
+    solver: str  # "soa" | "dense" | "flat"
+    explicit: bool  # dense only: explicit Schur (else implicit CG)
+
+
+def choose_ba_route(device_type: str, num_cams: int, schur_mode: str,
+                    ba_path: str = "", schur_override: str = "") -> BARoute:
+    """The BA solver ``_run_ba`` takes (reference
+    ``incremental_mapper.py:980-993`` with ``ba_dense.py:235-244``).
+
+    ``ba_path`` and ``schur_override`` are the values of the environment
+    variables ``PPSFM_BA_PATH`` (flat | dense | soa) and
+    ``PPSFM_SCHUR_MODE`` (auto | implicit | explicit), "" when unset; the
+    override replaces ``schur_mode``.  With neither set: the flat solver on
+    the CPU; on CUDA the SoA solver when C <= 1024 and the Schur mode
+    allows it, else the dense solver, implicit past 1024 cameras.
+    """
+    if schur_override:
+        schur_mode = schur_override
+    on_accel = device_type == "cuda"
+    if ba_path == "soa" or (ba_path == "" and on_accel
+                            and schur_pcg.explicit_fits(num_cams)
+                            and schur_mode in ("auto", "explicit")):
+        return BARoute("soa", False)
+    if ba_path == "dense" or (ba_path != "flat" and on_accel):
+        return BARoute("dense", ba_dense.uses_explicit(
+            schur_mode, device_type, num_cams))
+    return BARoute("flat", False)
 
 
 class BAAssembly(NamedTuple):
@@ -44,6 +79,7 @@ class IncrementalMapper:
         self.rec: Reconstruction | None = None
         self.phase_times: Dict[str, float] = {}
         self.last_summary: ba_mod.BASummary | None = None
+        self.last_route: BARoute | None = None
 
     # -- lifecycle -------------------------------------------------------
 
@@ -71,7 +107,8 @@ class IncrementalMapper:
     def _run_ba(self, config_images: Sequence[int], const_pose: Set[int],
                 const_tvec_x: Set[int],
                 ba_options: ba_mod.BAOptions) -> Tuple[bool, int]:
-        """Assemble the BA problem of ``config_images`` and solve it."""
+        """Assemble the BA problem of ``config_images`` and solve it on the
+        route of ``choose_ba_route``, recorded in ``last_route``."""
         t_start = time.perf_counter()
         if (ba_options.refine_focal_length
                 or ba_options.refine_principal_point
@@ -82,16 +119,32 @@ class IncrementalMapper:
         asm = self.assemble_ba(config_images, const_pose, const_tvec_x)
         if asm is None:
             return False, 0
-        dense = ba_dense.from_flat_problem(asm.problem)
-        t_assembled = time.perf_counter()
-        q, t, X, summary = ba_soa.bundle_adjust_soa(
-            dense, asm.camera_model, ba_options)
+        route = choose_ba_route(
+            self.device.type, len(asm.cam_list), ba_options.schur_mode,
+            os.environ.get("PPSFM_BA_PATH", ""),
+            os.environ.get("PPSFM_SCHUR_MODE", ""))
+        if route.solver == "flat":
+            t_assembled = time.perf_counter()
+            q, t, X, summary = ba_mod.bundle_adjust(
+                asm.problem, asm.camera_model, ba_options)
+        else:
+            dense = ba_dense.from_flat_problem(asm.problem)
+            t_assembled = time.perf_counter()
+            if route.solver == "soa":
+                q, t, X, summary = ba_soa.bundle_adjust_soa(
+                    dense, asm.camera_model, ba_options)
+            else:
+                q, t, X, summary = ba_dense.bundle_adjust_dense(
+                    dense, asm.camera_model, ba_options._replace(
+                        schur_mode="explicit" if route.explicit
+                        else "implicit"))
         q, t, X = (a.cpu().numpy().astype(np.float64) for a in (q, t, X))
         t_solved = time.perf_counter()
         for k, v in (("ba_assemble", t_assembled - t_start),
                      ("ba_solve", t_solved - t_assembled)):
             self.phase_times[k] = self.phase_times.get(k, 0.0) + v
         self.last_summary = summary
+        self.last_route = route
         if not (np.isfinite(q).all() and np.isfinite(t).all()
                 and np.isfinite(X).all()):
             return False, asm.num_obs
@@ -127,11 +180,6 @@ class IncrementalMapper:
 
         cam_list = list(config_images)
         C = len(cam_list)
-        if not schur_pcg.explicit_fits(C):
-            raise NotImplementedError(
-                f"BA over {C} > 1024 cameras needs the implicit-Schur "
-                "dense solver, which is not ported yet: ROADMAP.md "
-                "Queue 1 #8")
         cam_index = {iid: i for i, iid in enumerate(cam_list)}
         camera0 = rec.cameras[rec.images[cam_list[0]].camera_id]
         qvecs = np.zeros((C, 4))

@@ -38,6 +38,8 @@ Q_NOISE, T_NOISE, X_NOISE = 1e-3, 1e-2, 1e-2
 # Projections keep this many pixels from the image border, so the
 # perturbed model's observations stay inside the image.
 MARGIN = 10.0
+# Candidate points x cameras per visibility block of ``synthetic_model``.
+VIS_BLOCK = 1 << 22
 
 
 def synthetic_model(num_images: int, num_points: int, obs_per_point: int,
@@ -55,24 +57,33 @@ def synthetic_model(num_images: int, num_points: int, obs_per_point: int,
                  rng.uniform(-0.5, 0.5)]
     R = np.stack([lie_np.quat_to_rotmat(q) for q in qs])
 
+    def visible(X):
+        Xc = np.einsum("cij,mj->mci", R, X) + ts[None]
+        z = Xc[..., 2]
+        px = f * Xc[..., 0] / z + cx
+        py = f * Xc[..., 1] / z + cy
+        return ((z > 0.5) & (px > margin) & (px < width - margin)
+                & (py > margin) & (py < height - margin))
+
+    # Visibility is computed for blocks of candidates, so the (candidates,
+    # cameras, 3) temporaries stay near VIS_BLOCK elements at any size.
+    rows = max(1, VIS_BLOCK // num_images)
     pts, tracks = [], []
     while len(pts) < num_points:
         X = np.stack([rng.uniform(-3, 3, 4 * num_points),
                       rng.uniform(-2, 2, 4 * num_points),
                       rng.uniform(9, 15, 4 * num_points)], axis=1)
-        Xc = np.einsum("cij,mj->mci", R, X) + ts[None]
-        z = Xc[..., 2]
-        px = f * Xc[..., 0] / z + cx
-        py = f * Xc[..., 1] / z + cy
-        vis = ((z > 0.5) & (px > margin) & (px < width - margin)
-               & (py > margin) & (py < height - margin))
-        for m in np.nonzero(vis.sum(1) >= obs_per_point)[0]:
+        for lo in range(0, len(X), rows):
             if len(pts) == num_points:
                 break
-            cams = rng.choice(np.nonzero(vis[m])[0], obs_per_point,
-                              replace=False)
-            pts.append(X[m])
-            tracks.append(np.sort(cams))
+            vis = visible(X[lo:lo + rows])
+            for m in np.nonzero(vis.sum(1) >= obs_per_point)[0]:
+                if len(pts) == num_points:
+                    break
+                cams = rng.choice(np.nonzero(vis[m])[0], obs_per_point,
+                                  replace=False)
+                pts.append(X[lo + m])
+                tracks.append(np.sort(cams))
     pts = np.asarray(pts)
 
     per_image_lines = [[] for _ in range(num_images)]

@@ -2,9 +2,12 @@
 
 A seeded synthetic text model (8 cameras, 200 points, 4 distinct cameras
 per point, lines through noisy projections, perturbed poses and points)
-goes through the reference CLI on its SoA path (``PPSFM_BA_PATH=soa``,
-the solver the TPU ran) and through the port's CLI on the CPU in
-float64.  The two output models agree to 1e-6.
+goes through the reference CLI and through the port's CLI on the CPU in
+float64, under the same BA route: the SoA path (``PPSFM_BA_PATH=soa``,
+the solver the TPU ran), the dense-block solver (``PPSFM_BA_PATH=dense``,
+implicit, and explicit with ``PPSFM_SCHUR_MODE=explicit``) and the flat
+solver (no override: both packages take it on the CPU).  The two output
+models agree to 1e-6.
 """
 
 import os
@@ -35,17 +38,17 @@ def model_dir(tmp_path_factory):
     return path
 
 
-def test_bundle_adjuster_matches_reference(model_dir, monkeypatch, capsys):
-    monkeypatch.setenv("PPSFM_BA_PATH", "soa")
+def _check_cli_matches_reference(model_dir, tag):
+    """Run both CLIs under the current environment; returns the port's
+    mapper after checking the two output models agree."""
     args = ["bundle_adjuster", "--input_path", str(model_dir / "in"),
             "--max_num_iterations", "10"]
-    jcli.main(args + ["--output_path", str(model_dir / "jax")])
-    tcli.main(args + ["--output_path", str(model_dir / "torch"),
-                      "--device", "cpu", "--dtype", "float64"])
-    assert "LM iterations=" in capsys.readouterr().out
-
-    a = Reconstruction.read_text(str(model_dir / "jax"))
-    b = Reconstruction.read_text(str(model_dir / "torch"))
+    jcli.main(args + ["--output_path", str(model_dir / f"jax_{tag}")])
+    mapper = tcli.main(args + ["--output_path",
+                               str(model_dir / f"torch_{tag}"),
+                               "--device", "cpu", "--dtype", "float64"])
+    a = Reconstruction.read_text(str(model_dir / f"jax_{tag}"))
+    b = Reconstruction.read_text(str(model_dir / f"torch_{tag}"))
     start = Reconstruction.read_text(str(model_dir / "in"))
     assert sorted(a.images) == sorted(b.images) == list(range(1, 9))
     assert sorted(a.points3d) == sorted(b.points3d)
@@ -60,6 +63,32 @@ def test_bundle_adjuster_matches_reference(model_dir, monkeypatch, capsys):
     err_a, err_b = line_error_sum(a), line_error_sum(b)
     np.testing.assert_allclose(err_b, err_a, rtol=1e-6)
     assert err_b < 0.5 * line_error_sum(start)
+    return mapper
+
+
+def test_bundle_adjuster_matches_reference(model_dir, monkeypatch, capsys):
+    monkeypatch.setenv("PPSFM_BA_PATH", "soa")
+    mapper = _check_cli_matches_reference(model_dir, "soa")
+    assert "LM iterations=" in capsys.readouterr().out
+    assert mapper.last_route.solver == "soa"
+
+
+@pytest.mark.parametrize("ba_path,schur_mode,route", [
+    ("", "", ("flat", False)),
+    ("dense", "", ("dense", False)),
+    ("dense", "explicit", ("dense", True))],
+    ids=["flat", "dense-implicit", "dense-explicit"])
+def test_bundle_adjuster_routes_match_reference(model_dir, monkeypatch,
+                                                ba_path, schur_mode, route):
+    for name, value in (("PPSFM_BA_PATH", ba_path),
+                        ("PPSFM_SCHUR_MODE", schur_mode)):
+        if value:
+            monkeypatch.setenv(name, value)
+        else:
+            monkeypatch.delenv(name, raising=False)
+    mapper = _check_cli_matches_reference(
+        model_dir, f"{ba_path or 'none'}_{schur_mode or 'none'}")
+    assert tuple(mapper.last_route[:2]) == route
 
 
 def test_cuda_device_without_gpu_is_an_error(model_dir, monkeypatch):
@@ -77,7 +106,9 @@ def test_port_imports_without_jax():
         "import privacy_preserving_sfm_torch\n"
         "from privacy_preserving_sfm_torch.exe import ppsfm\n"
         "from privacy_preserving_sfm_torch.kernels import build\n"
-        "from privacy_preserving_sfm_torch.optim import ba_soa, convert\n"
+        "from privacy_preserving_sfm_torch.optim import (\n"
+        "    ba, ba_dense, ba_soa, convert, schur_pcg)\n"
+        "from privacy_preserving_sfm_torch.ops import linalg\n"
         "from privacy_preserving_sfm_torch.sfm import incremental_mapper\n"
         "from privacy_preserving_sfm_torch.utils import synthetic\n"
         "from privacy_preserving_sfm_torch.features import (\n"

@@ -65,6 +65,63 @@ def test_gram_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
     assert torch.equal(S, S2) and torch.equal(r, r2)
 
 
+def _aos(lh, gl, cam):
+    """The same Gram inputs in the AoS layout of ``gram_aos``."""
+    K, P = cam.shape
+    LH = lh.reshape(3, 6, K, P).permute(3, 2, 0, 1).contiguous()
+    return LH, gl.T.contiguous(), cam.T.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,P,C,repeat", [(4, 37, 9, False),
+                                          (6, 900, 40, True),
+                                          (16, 300, 300, False)])
+def test_gram_aos_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
+    LH, gl, cam = _aos(*_gram_inputs(5, K, P, C, dtype, cuda, repeat))
+    S_ref, r_ref = tsp.gram_aos_plain(LH.double(), gl.double(), cam, C)
+    n0 = kernels.LAUNCHES["schur_gram_aos"]
+    S, r = tsp.gram_aos(LH, gl, cam, C)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schur_gram_aos"] == n0 + 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert (S.double() - S_ref).abs().max() <= tol * S_ref.abs().max()
+    assert (r.double() - r_ref).abs().max() <= tol * r_ref.abs().max()
+    assert torch.equal(S, S.T)
+    S2, r2 = tsp.gram_aos(LH, gl, cam, C)
+    assert torch.equal(S, S2) and torch.equal(r, r2)
+
+
+def test_gram_aos_kernel_equals_soa_kernel(cuda):
+    """One kernel body, two stagings: the same sums in the same order."""
+    lh, gl, cam = _gram_inputs(6, 6, 500, 30, torch.float32, cuda, True)
+    S, r = tsp.gram_soa(lh, gl, cam, 30)
+    S2, r2 = tsp.gram_aos(*_aos(lh, gl, cam), 30)
+    assert torch.equal(S, S2) and torch.equal(r, r2)
+
+
+@pytest.mark.parametrize("layout", ["soa", "aos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_bf16_kernel_matches_plain(cuda, layout, dtype):
+    """bf16 mode: the same rounding on both sides, so only the sum order
+    differs (1e-4 of max|S| in float32)."""
+    lh, gl, cam = _gram_inputs(7, 6, 900, 40, dtype, cuda, True)
+    if layout == "aos":
+        args = _aos(lh, gl, cam)
+        kernel, plain = tsp.gram_aos, tsp.gram_aos_plain
+    else:
+        args = (lh, gl, cam)
+        kernel, plain = tsp.gram_soa, tsp.gram_soa_plain
+    S_ref, r_ref = plain(*args, 40, "bf16")
+    S, r = kernel(*args, 40, "bf16")
+    torch.cuda.synchronize()
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert (S - S_ref).abs().max() <= tol * S_ref.abs().max()
+    assert (r - r_ref).abs().max() <= tol * r_ref.abs().max()
+    S32, r32 = kernel(*args, 40)
+    assert torch.equal(r32, r)
+    assert (S32 - S).abs().max() > 1e-4 * S_ref.abs().max()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("C", [9, 100])
 def test_pcg_kernel_matches_plain(cuda, dtype, C):
@@ -107,6 +164,46 @@ def test_bundle_adjust_soa_kernels_match_plain(cuda):
     opts = tba.BAOptions(max_iterations=3, cg_iterations=20)
     ref = tsoa.bundle_adjust_soa(dense, "SIMPLE_PINHOLE", opts, plain=True)
     got = tsoa.bundle_adjust_soa(dense, "SIMPLE_PINHOLE", opts)
+    assert got[3].num_iterations == ref[3].num_iterations
+    np.testing.assert_allclose(got[3].final_cost, ref[3].final_cost,
+                               rtol=1e-9)
+    for a, b in zip(got[:3], ref[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("mode", ["explicit", "implicit"])
+def test_bundle_adjust_dense_kernels_match_plain(cuda, mode):
+    """Ragged tracks (padding slots) through the dense solver: the AoS Gram
+    and PCG kernels against their plain versions, float64."""
+    rng = np.random.default_rng(4)
+    C, P = 12, 300
+    pts = rng.uniform(-2, 2, (P, 3)) + np.array([0, 0, 8.0])
+    qs = np.tile([1.0, 0, 0, 0], (C, 1)) + rng.normal(0, 1e-3, (C, 4))
+    ts = np.stack([rng.uniform(-2, 2, C), rng.uniform(-0.3, 0.3, C),
+                   rng.uniform(-0.5, 0.5, C)], 1)
+    lens = rng.integers(2, 7, P)
+    obs_cam = np.concatenate([rng.permutation(C)[:n] for n in lens])
+    lines = rng.standard_normal((len(obs_cam), 3))
+    lines /= np.linalg.norm(lines[:, :2], axis=-1, keepdims=True)
+    mask = np.ones((C, 6))
+    mask[0] = 0.0
+    mask[1, 3] = 0.0
+    fields = dict(qvecs=qs, tvecs=ts, cam_params=np.tile([500.0, 320, 240],
+                                                         (C, 1)),
+                  points3d=pts, obs_cam=obs_cam,
+                  obs_point=np.repeat(np.arange(P), lens), obs_line=lines,
+                  obs_weight=np.ones(len(obs_cam)), cam_dof_mask=mask,
+                  point_mask=np.ones(P))
+    dense = tbd.from_flat_problem(
+        convert.ba_problem_from_numpy(fields, cuda, torch.float64))
+    opts = tba.BAOptions(max_iterations=3, cg_iterations=20, schur_mode=mode)
+    n0 = dict(kernels.LAUNCHES)
+    ref = tbd.bundle_adjust_dense(dense, "SIMPLE_PINHOLE", opts, plain=True)
+    assert kernels.LAUNCHES == n0
+    got = tbd.bundle_adjust_dense(dense, "SIMPLE_PINHOLE", opts)
+    launched = kernels.LAUNCHES["schur_gram_aos"] - n0["schur_gram_aos"]
+    assert launched == (got[3].num_iterations if mode == "explicit" else 0)
     assert got[3].num_iterations == ref[3].num_iterations
     np.testing.assert_allclose(got[3].final_cost, ref[3].final_cost,
                                rtol=1e-9)
