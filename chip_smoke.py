@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,6 +48,8 @@ GRAM_SHAPES = [(6, 20000, 100), (16, 20000, 100), (128, 8192, 320),
 # 2..RAGGED[0] slots, padding slots at camera -1).
 GRAM_AOS_SHAPES = [(6, 20000, 100), (16, 20000, 100), (8, 16384, 256)]
 RAGGED = (32, 20000, 100)
+# The Gram's kernels by name (schur_gram.cu: compaction, strips, reduction).
+GRAM_KERNEL = r"gram_(compact|strip|reduce)_kernel"
 PCG_CAMS = [100, 320, 640]
 CG_ITERS = 30
 MAIN = dict(num_images=100, num_points=20000, obs_per_point=6,
@@ -153,12 +156,38 @@ def gram_inputs(K, P, C, dtype, device, seed):
     return lh, gl, cam[:, :K].T.contiguous().to(torch.int32)
 
 
-def phase_gram(device, reps=5):
+def useful_gflop(plan):
+    """The sparse Gram's useful work: 2 * 108 * sum_p m_p^2 flops."""
+    return 216.0 * float((plan.count.double() ** 2).sum()) / 1e9
+
+
+def gram_times(gram, plan_of, a, b, cam, C, reps, precision="f32"):
+    """Times (CUDA events, ms) of one Gram: the launch alone with the plan
+    prebuilt, the plan build, the wrapper with a plan per call; and the
+    plan."""
+    plan = plan_of(cam, C)
+    ms = cuda_ms(lambda: gram(a, b, cam, C, precision, plan=plan), reps)
+    plan_ms = cuda_ms(lambda: plan_of(cam, C), reps)
+    call_ms = cuda_ms(lambda: gram(a, b, cam, C, precision), reps)
+    return ms, plan_ms, call_ms, plan
+
+
+def times_text(ms, plan_ms, call_ms, plain_ms, plan):
+    return (f"kernel {ms:.4f} ms (launch alone, plan prebuilt; "
+            f"{useful_gflop(plan) / ms * 1e3:.1f} useful GFLOP/s), plan "
+            f"build {plan_ms:.4f} ms, plan per call {call_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+
+
+def phase_gram(device, card, reps=5):
     """Gram kernel vs gram_soa_plain; returns the main-path shape's stats
     and the float64 Grams (for the PCG systems)."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    def plan_of(cam, C):
+        return schur_pcg.gram_plan(cam, C, "soa")
 
     grams = {}
     main_stats = None
@@ -169,22 +198,25 @@ def phase_gram(device, reps=5):
         r_scale = float(r_ref.abs().max())
         for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
             a, b = lh.to(dtype), gl.to(dtype)
-            S, r = schur_pcg.gram_soa(a, b, cam, C)
+            plan = plan_of(cam, C)
+            S, r = schur_pcg.gram_soa(a, b, cam, C, plan=plan)
             S2, r2 = schur_pcg.gram_soa(a, b, cam, C)
             torch.cuda.synchronize()
             err_s = float((S.double() - S_ref).abs().max())
             err_r = float((r.double() - r_ref).abs().max())
             asym = float((S - S.T).abs().max())
             bit_equal = torch.equal(S, S2) and torch.equal(r, r2)
-            ms = cuda_ms(lambda: schur_pcg.gram_soa(a, b, cam, C), reps)
+            ms, plan_ms, call_ms, plan = gram_times(
+                schur_pcg.gram_soa, plan_of, a, b, cam, C, reps)
             plain_ms = cuda_ms(
                 lambda: schur_pcg.gram_soa_plain(a, b, cam, C), reps)
             name = str(dtype).replace("torch.", "")
             phase("gram", f"K={K} P={P} C={C} {name}: max|dS|={err_s:.3e} "
                   f"(tol {tol * s_scale:.3e}) max|drhs|={err_r:.3e} "
                   f"(tol {tol * r_scale:.3e}) max|S-S^T|={asym:.3e} "
-                  f"bit-equal={bit_equal} kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
+                  f"bit-equal={bit_equal} "
+                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan)} "
+                  f"| {card}")
             check(err_s <= tol * s_scale, "Gram S disagrees")
             check(err_r <= tol * r_scale, "Gram rhs disagrees")
             check(asym <= 1e-6 * s_scale, "Gram S not symmetric")
@@ -218,11 +250,14 @@ def aos_inputs(K, P, C, dtype, device, seed, ragged=False):
 def phase_gram_aos(device, card, reps=5):
     """AoS Gram kernel vs gram_aos_plain at the dense explicit path's
     shape, the TPU kernel's K and C ceilings and a ragged problem; bf16
-    mode and the SoA kernel at the first shape.  Returns the first shape's
-    float32 stats."""
+    mode (distinct and repeated cameras) and the SoA kernel at the first
+    shape.  Returns the first shape's float32 stats."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    def plan_of(cam, C):
+        return schur_pcg.gram_plan(cam, C, "aos")
 
     shapes = [(K, P, C, False) for K, P, C in GRAM_AOS_SHAPES]
     shapes.append(RAGGED + (True,))
@@ -239,22 +274,25 @@ def phase_gram_aos(device, card, reps=5):
                      f"{int((cam >= 0).sum())} observations)")
         for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
             a, b = LH.to(dtype), gL.to(dtype)
-            S, r = schur_pcg.gram_aos(a, b, cam, C)
+            plan = plan_of(cam, C)
+            S, r = schur_pcg.gram_aos(a, b, cam, C, plan=plan)
             S2, r2 = schur_pcg.gram_aos(a, b, cam, C)
             torch.cuda.synchronize()
             err_s = float((S.double() - S_ref).abs().max())
             err_r = float((r.double() - r_ref).abs().max())
             asym = float((S - S.T).abs().max())
             bit_equal = torch.equal(S, S2) and torch.equal(r, r2)
-            ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C), reps)
+            ms, plan_ms, call_ms, plan = gram_times(
+                schur_pcg.gram_aos, plan_of, a, b, cam, C, reps)
             plain_ms = cuda_ms(
                 lambda: schur_pcg.gram_aos_plain(a, b, cam, C), reps)
             name = str(dtype).replace("torch.", "")
             phase("gram_aos", f"{what} {name}: max|dS|={err_s:.3e} "
                   f"(tol {tol * s_scale:.3e}) max|drhs|={err_r:.3e} "
                   f"(tol {tol * r_scale:.3e}) max|S-S^T|={asym:.3e} "
-                  f"bit-equal={bit_equal} kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms | {card}")
+                  f"bit-equal={bit_equal} "
+                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan)} "
+                  f"| {card}")
             check(err_s <= tol * s_scale, "AoS Gram S disagrees")
             check(err_r <= tol * r_scale, "AoS Gram rhs disagrees")
             check(asym <= 1e-6 * s_scale, "AoS Gram S not symmetric")
@@ -263,53 +301,83 @@ def phase_gram_aos(device, card, reps=5):
                 main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms)
         if (K, P, C, ragged) == shapes[0]:
             phase_gram_bf16(a, b, cam, C, card, reps)
+            rep = cam.clone()
+            rep[::3, 1] = rep[::3, 0]  # a third of the points repeat a camera
+            phase_gram_bf16(a, b, rep, C, card, reps, repeated=True)
         del LH, gL, S_ref
         torch.cuda.empty_cache()
     return main_stats
 
 
-def phase_gram_bf16(a, b, cam, C, card, reps):
-    """bf16 mode of the AoS kernel against its plain version (the same
-    rounding on both sides: only the sum order differs), and the SoA
-    kernel on the same float32 blocks."""
+def phase_gram_bf16(a, b, cam, C, card, reps, repeated=False):
+    """bf16 mode of the AoS kernel against its plain version (both round
+    V's entries: only the sum order differs), the SoA kernel on the same
+    blocks, bit-equal to the AoS one; with ``repeated``, points that have
+    two slots in one camera, where rounding each slot instead of V's
+    entry would give another S."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
 
     P, K = cam.shape
     S_ref, r_ref = schur_pcg.gram_aos_plain(a, b, cam, C, "bf16")
-    S, r = schur_pcg.gram_aos(a, b, cam, C, "bf16")
+    plan = schur_pcg.gram_plan(cam, C, "aos")
+    S, r = schur_pcg.gram_aos(a, b, cam, C, "bf16", plan=plan)
     S2, r2 = schur_pcg.gram_aos(a, b, cam, C, "bf16")
+    _, r32 = schur_pcg.gram_aos(a, b, cam, C, plan=plan)
     torch.cuda.synchronize()
     s_scale = float(S_ref.abs().max())
     err_s = float((S - S_ref).abs().max())
     err_r = float((r - r_ref).abs().max())
     asym = float((S - S.T).abs().max())
     bit_equal = torch.equal(S, S2) and torch.equal(r, r2)
-    ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C, "bf16"), reps)
+    ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C, "bf16", plan=plan),
+                 reps)
     plain_ms = cuda_ms(
         lambda: schur_pcg.gram_aos_plain(a, b, cam, C, "bf16"), reps)
-    phase("gram_aos", f"K={K} P={P} C={C} bf16 operands: max|dS|="
-          f"{err_s:.3e} (tol {1e-4 * s_scale:.3e}) max|drhs|={err_r:.3e} "
-          f"(tol {1e-4 * float(r_ref.abs().max()):.3e}) max|S-S^T|="
-          f"{asym:.3e} bit-equal={bit_equal} kernel {ms:.4f} ms, plain "
+    what = f"K={K} P={P} C={C} bf16 operands"
+    if repeated:
+        what += (f", repeated cameras ({int((cam[:, 1] == cam[:, 0]).sum())}"
+                 f" points)")
+    phase("gram_aos", f"{what}: max|dS|={err_s:.3e} (tol "
+          f"{1e-4 * s_scale:.3e}) max|drhs|={err_r:.3e} (tol "
+          f"{1e-4 * float(r_ref.abs().max()):.3e}) rhs equal to float32 rhs="
+          f"{torch.equal(r, r32)} max|S-S^T|={asym:.3e} bit-equal="
+          f"{bit_equal} kernel {ms:.4f} ms (launch alone), plain "
           f"{plain_ms:.4f} ms | {card}")
     check(err_s <= 1e-4 * s_scale, "bf16 AoS Gram S disagrees")
     check(err_r <= 1e-4 * float(r_ref.abs().max()),
           "bf16 AoS Gram rhs disagrees")
+    check(torch.equal(r, r32), "bf16 AoS Gram rounded rhs")
     check(asym <= 1e-6 * s_scale, "bf16 AoS Gram S not symmetric")
     check(bit_equal, "bf16 AoS Gram kernel not deterministic")
     lh_stack = a.permute(2, 3, 1, 0).reshape(18 * K, P).contiguous()
     gl, cam_kp = b.T.contiguous(), cam.T.contiguous()
+    if repeated:
+        # Per-slot rounding (the port before it rounded V's entries).
+        V = schur_pcg._expand_v(schur_pcg._round_bf16(a), cam, C)
+        slot_err = float((V.T @ V - S_ref).abs().max())
+        S_soa, r_soa = schur_pcg.gram_soa(lh_stack, gl, cam_kp, C, "bf16")
+        same = torch.equal(S_soa, S) and torch.equal(r_soa, r)
+        phase("gram_aos", f"{what}: SoA kernel bit-equal to AoS={same}; "
+              f"rounding each slot instead would move S by {slot_err:.3e} "
+              f"(tol {1e-4 * s_scale:.3e}) | {card}")
+        check(same, "bf16 SoA and AoS Gram kernels differ")
+        check(slot_err > 1e-4 * s_scale,
+              "repeated cameras do not tell the roundings apart")
+        return
     S_soa, r_soa = schur_pcg.gram_soa(lh_stack, gl, cam_kp, C)
     S_aos, r_aos = schur_pcg.gram_aos(a, b, cam, C)
     same = torch.equal(S_soa, S_aos) and torch.equal(r_soa, r_aos)
-    soa_ms = cuda_ms(lambda: schur_pcg.gram_soa(lh_stack, gl, cam_kp, C),
+    plan_soa = schur_pcg.gram_plan(cam_kp, C, "soa")
+    soa_ms = cuda_ms(lambda: schur_pcg.gram_soa(lh_stack, gl, cam_kp, C,
+                                                plan=plan_soa), reps)
+    aos_ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C, plan=plan),
                      reps)
-    aos_ms = cuda_ms(lambda: schur_pcg.gram_aos(a, b, cam, C), reps)
     phase("gram_aos", f"K={K} P={P} C={C} float32, same blocks: AoS kernel "
-          f"{aos_ms:.4f} ms, SoA kernel {soa_ms:.4f} ms, outputs "
-          f"bit-equal={same} | {card}")
+          f"{aos_ms:.4f} ms, SoA kernel {soa_ms:.4f} ms (launch alone), "
+          f"outputs bit-equal={same} | {card}")
+    check(same, "SoA and AoS Gram kernels differ on the same blocks")
 
 
 def pcg_system(S_corr, C, device, seed):
@@ -447,7 +515,47 @@ def phase_main_path(device, card, workdir):
           f"iterations, {time.perf_counter() - t0:.3f} s): rel diff "
           f"{rel:.3e} (tol 1e-3); initial cost {summary.initial_cost!r}")
     check(rel <= 1e-3, "final cost disagrees with the float64 plain run")
+    gram_share("main", card, lambda: ppsfm.main([
+        "bundle_adjuster", "--input_path", in_dir, "--output_path",
+        os.path.join(workdir, "out_prof"), "--max_num_iterations",
+        str(LM_ITERS), "--device", device.type, "--dtype", "float32"]))
     return launches
+
+
+def gram_share(name, card, run):
+    """``run()`` once more under torch.profiler: the Gram kernels' share
+    of kernel time (the kernels' self device time by name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only (kernels, copies), less the device-timeline
+    # intervals of record_function spans, which carry a host op's name.
+    averages = prof.key_averages()
+    host = {e.key for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in host and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    grams = [e for e in events if re.search(GRAM_KERNEL, e.key)]
+    gram = sum(e.self_device_time_total for e in grams)
+    pcg = sum(e.self_device_time_total for e in events
+              if "schur_pcg_kernel" in e.key)
+    each = ", ".join(
+        f"{re.search(GRAM_KERNEL, e.key).group(0)} "
+        f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in grams)
+    phase(name, f"under torch.profiler: wall {wall:.3f} s, kernel time "
+          f"{total / 1e3:.3f} ms (busy {total / 1e4 / wall:.1f} %), Gram "
+          f"kernels {gram / 1e3:.3f} ms = {100 * gram / max(total, 1):.1f} % "
+          f"of kernel time ({each}), PCG {pcg / 1e3:.3f} ms | {card}")
+    check(gram > 0, "the profiled run launched no Gram kernel")
 
 
 def check_output_model(out_dir, cfg, err_in, name):
@@ -585,6 +693,10 @@ def phase_dense_explicit(device, card, workdir):
     s64, dt = float64_cost(device, in_dir, ba_mod.BAOptions(
         max_iterations=LM_ITERS, schur_mode="explicit"))
     compare_float64("dense_explicit", mapper.last_summary, s64, dt)
+    gram_share("dense_explicit", card, lambda: run_bundle_adjuster(
+        device, in_dir, os.path.join(workdir, "out_dense_prof"),
+        {"PPSFM_BA_PATH": "dense", "PPSFM_SCHUR_MODE": None},
+        ["--max_num_iterations", str(LM_ITERS)]))
     return launches
 
 
@@ -823,7 +935,7 @@ def main() -> int:
     try:
         card = phase_device()
         timed("build", phase_build)
-        gram_stats, grams = timed("gram", phase_gram, device)
+        gram_stats, grams = timed("gram", phase_gram, device, card)
         pcg_stats = timed("pcg", phase_pcg, device, grams)
         del grams
         torch.cuda.empty_cache()

@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
 The ``.cu`` sources beside this file are compiled on first use by
-``nvcc`` into one shared library with a plain C interface, under
-``_build/`` (listed in ``.gitignore``), and loaded with ``ctypes``.  The
-library's name carries a hash of the sources and flags, so an edited
-source rebuilds.  Nothing is built or loaded when the module is imported.
+``nvcc``, one process per source started together, and linked into one
+shared library with a plain C interface, under ``_build/`` (listed in
+``.gitignore``), loaded with ``ctypes``.  The library's name carries a
+hash of the sources and flags, so an edited source rebuilds.  Nothing is
+built or loaded when the module is imported.
 
 The launchers below are the only places a kernel is launched.  Each adds
 one to ``LAUNCHES[name]`` when it launches, so a run can show that its
@@ -31,7 +32,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("schur_gram.cu", "schur_pcg.cu", "match_top2.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Launch counts by kernel name; callers may reset them to 0.
 LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_gram_aos": 0,
@@ -80,15 +81,34 @@ def build() -> str:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_DIR, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"[{time.perf_counter() - t0:.1f} s, exit {proc.returncode}]\n")
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{src}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_DIR, src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", False
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += f"$ {' '.join(cmd)}\n{out}[exit {proc.returncode}]\n"
+        failed |= proc.returncode != 0
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                f"[exit {proc.returncode}]\n")
+        failed = proc.returncode != 0
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log += f"[{time.perf_counter() - t0:.1f} s]\n"
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
         f.write(log)
-    if proc.returncode != 0:
+    if failed:
         raise RuntimeError(f"nvcc failed building the kernels:\n{log}")
     os.replace(tmp, lib_path)
     return lib_path
@@ -104,7 +124,7 @@ def library() -> ctypes.CDLL:
     for suffix in ("f32", "f64"):
         for layout in ("", "aos_"):
             fn = getattr(lib, f"ppsfm_schur_gram_{layout}{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.argtypes = [vp] * 12 + [ci] * 7 + [vp]
             fn.restype = ci
         fn = getattr(lib, f"ppsfm_schur_pcg_{suffix}")
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
@@ -134,42 +154,51 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch_gram(name: str, K: int, P: int, lh, gl, cam, order, offsets,
-                 S, rhs, cam_block: int, bf16: bool):
+def _launch_gram(name: str, K: int, P: int, lh, gl, slot_d, dcam, count,
+                 obs, offsets, Vc, ws, ws_rhs, S, rhs, cam_block: int,
+                 splits: int, bf16: bool):
     C = offsets.shape[0] - 1
+    M = dcam.shape[1]
     fn = getattr(library(), f"ppsfm_{name}_{_suffix(lh)}")
+    ptrs = [t.data_ptr() for t in (lh, gl, slot_d, dcam, count, obs,
+                                   offsets, Vc, ws, ws_rhs, S, rhs)]
     with torch.cuda.device(lh.device):
-        err = fn(lh.data_ptr(), gl.data_ptr(), cam.data_ptr(),
-                 order.data_ptr(), offsets.data_ptr(), S.data_ptr(),
-                 rhs.data_ptr(), K, P, C, cam_block, int(bf16), _stream(lh))
+        err = fn(*ptrs, K, P, C, M, cam_block, splits, int(bf16),
+                 _stream(lh))
     _check(name, err)
     LAUNCHES[name] += 1
 
 
-def launch_schur_gram(lh: torch.Tensor, gl: torch.Tensor, cam: torch.Tensor,
-                      order: torch.Tensor, offsets: torch.Tensor,
+def launch_schur_gram(lh: torch.Tensor, gl: torch.Tensor,
+                      slot_d: torch.Tensor, dcam: torch.Tensor,
+                      count: torch.Tensor, obs: torch.Tensor,
+                      offsets: torch.Tensor, Vc: torch.Tensor,
+                      ws: torch.Tensor, ws_rhs: torch.Tensor,
                       S: torch.Tensor, rhs: torch.Tensor, cam_block: int,
-                      bf16: bool = False):
+                      splits: int, bf16: bool = False):
     """Launch ``schur_gram.cu`` on the SoA layout: S (6C, 6C) and rhs (6C,)
-    from lh (18K, P), gl (3, P), cam (K, P) int32 and the camera-sorted
-    observation list (order, offsets) int32; ``bf16`` rounds the S
-    operands to bfloat16.  The caller has checked shapes and types."""
-    K, P = cam.shape
-    _launch_gram("schur_gram", K, P, lh, gl, cam, order, offsets, S, rhs,
-                 cam_block, bf16)
+    from lh (18K, P), gl (3, P) and a Gram plan (int32: slot_d (K, P),
+    dcam (P, M), count (P,), obs (P*M,), offsets (C + 1,)), through the
+    scratch Vc (P, M, 24) and, for ``splits`` > 1, the split partials ws
+    (splits, 6C, 6C) and ws_rhs (splits, 6C); ``bf16`` rounds V's entries
+    to bfloat16.  The caller has checked shapes and types."""
+    K, P = slot_d.shape
+    _launch_gram("schur_gram", K, P, lh, gl, slot_d, dcam, count, obs,
+                 offsets, Vc, ws, ws_rhs, S, rhs, cam_block, splits, bf16)
 
 
 def launch_schur_gram_aos(lh: torch.Tensor, gl: torch.Tensor,
-                          cam: torch.Tensor, order: torch.Tensor,
-                          offsets: torch.Tensor, S: torch.Tensor,
-                          rhs: torch.Tensor, cam_block: int,
-                          bf16: bool = False):
+                          slot_d: torch.Tensor, dcam: torch.Tensor,
+                          count: torch.Tensor, obs: torch.Tensor,
+                          offsets: torch.Tensor, Vc: torch.Tensor,
+                          ws: torch.Tensor, ws_rhs: torch.Tensor,
+                          S: torch.Tensor, rhs: torch.Tensor,
+                          cam_block: int, splits: int, bf16: bool = False):
     """Launch ``schur_gram.cu`` on the AoS layout: lh (P, K, 3, 6), gl
-    (P, 3), cam (P, K) int32; otherwise as ``launch_schur_gram`` (the
-    order list still holds slot ids k*P + p)."""
-    P, K = cam.shape
-    _launch_gram("schur_gram_aos", K, P, lh, gl, cam, order, offsets, S,
-                 rhs, cam_block, bf16)
+    (P, 3), slot_d (P, K); otherwise as ``launch_schur_gram``."""
+    P, K = slot_d.shape
+    _launch_gram("schur_gram_aos", K, P, lh, gl, slot_d, dcam, count, obs,
+                 offsets, Vc, ws, ws_rhs, S, rhs, cam_block, splits, bf16)
 
 
 def launch_schur_pcg(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,

@@ -12,7 +12,8 @@ layout, with two ways to solve the reduced camera system:
 
 * **explicit** — with L = chol(Hpp_damped^-1), the per-slot blocks
   LH = L^T Hcp (P, K, 3, 6) go to the AoS Schur Gram
-  ``schur_pcg.gram_aos`` (``kernels/schur_gram.cu`` on CUDA), and the
+  ``schur_pcg.gram_aos`` (``kernels/schur_gram.cu`` on CUDA, with its
+  plan of the camera ids built once per solve), and the
   dense S = dHcc - S_corr, identity-padded to ``padded_dim(C)``, to the
   PCG ``schur_pcg.pcg`` (``kernels/schur_pcg.cu`` on CUDA);
 * **implicit** — the matrix-free block-Jacobi CG of ``ba.py``, whose
@@ -169,6 +170,9 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
     oc_flat = oc.reshape(-1)
     # The Gram kernel skips negative camera ids: padding slots get -1.
     cam_gram = torch.where(problem.obs_weight > 0, oc, -1).to(torch.int32)
+    # The Gram kernel's plan of these ids, built once for the solve.
+    gram_kw = {"plan": schur_pcg.gram_plan(cam_gram, C, "aos")} \
+        if explicit and not plain else {}
 
     def cam_bins(values):
         """(P, K, ...) per-slot values -> (C, ...) camera bins."""
@@ -198,7 +202,7 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
             gL = torch.einsum("pba,pb->pa", L, gp)
             LH = torch.einsum("pba,pkib->pkai", L, Hcp_o)  # (P, K, 3, 6)
             S_corr, rhs_corr = gram(LH, gL, cam_gram, C,
-                                    options.schur_precision)
+                                    options.schur_precision, **gram_kw)
         rhs = gc.reshape(n) - rhs_corr
         SJ_inv = ba_mod._inv6(dHcc - schur_pcg.diag_blocks(S_corr, C)
                               + 1e-12 * eye6)

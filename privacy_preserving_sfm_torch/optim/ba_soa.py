@@ -12,7 +12,9 @@ masks as the reference; per LM iteration:
 2. points eliminated in closed form: with L = chol(Hpp_damped^-1), the
    blocks LH = L^T Hcp go to the Schur Gram ``schur_pcg.gram_soa``, which
    returns S_corr = V^T V and rhs_corr (in ``options.schur_precision``;
-   padding slots reach it with camera id -1, so its kernel skips them);
+   padding slots reach it with camera id -1, so its kernel skips them;
+   its plan of the camera ids, ``schur_pcg.gram_plan``, is built once per
+   solve);
 3. the reduced camera system S = dHcc - S_corr (dense, identity-padded to
    ``padded_dim(C)``) is solved by ``schur_pcg.pcg`` with the block-Jacobi
    preconditioner, and the point steps are back-substituted.
@@ -96,6 +98,9 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     # The Gram kernel skips negative camera ids: padding slots get -1.
     cam_kp32 = torch.where(problem.obs_weight.T > 0, oc_kp, -1).to(
         torch.int32)
+    # The Gram kernel's plan of these ids, built once for the solve.
+    gram_kw = {} if plain else {
+        "plan": schur_pcg.gram_plan(cam_kp32, C, "soa")}
     oc = oc_kp.reshape(-1)  # (K*P,), index k*P + p
     w_o = problem.obs_weight.T.reshape(-1).to(dtype)
     line_o = problem.obs_line.transpose(0, 1).reshape(-1, 3)
@@ -156,7 +161,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
 
         with record_function("ba_soa.gram"):
             S_corr, rhs_corr = gram(lh_stack, gL, cam_kp32, C,
-                                    options.schur_precision)
+                                    options.schur_precision, **gram_kw)
         rhs = gc.reshape(n) - rhs_corr
         SJ = dHcc - schur_pcg.diag_blocks(S_corr, C)
         SJ_inv = ba_mod._inv6(SJ + 1e-12 * eye6)

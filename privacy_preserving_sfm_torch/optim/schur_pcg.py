@@ -27,27 +27,37 @@ kernel against XLA loop) have no counterpart: ``plain=True`` on a solver
 is the only way to the plain versions on the card.
 
 ``precision="bf16"`` is the Gram's one lower-precision mode (the
-reference's ``schur_precision``): the V operands of ``S_corr`` are
-rounded to bfloat16 and their products summed in the input precision;
-``rhs_corr`` stays unrounded.  Kernel and plain version both round each
-observation slot's block before adding it into V.  The reference rounds
-V's entries, which are sums over the slots of one point that share a
-camera, so the two differ only where a point has two valid slots in one
-camera.
+reference's ``schur_precision``): V's entries are rounded to bfloat16 and
+the products of ``S_corr`` summed in the input precision; ``rhs_corr``
+stays unrounded, as in the three TPU kernels (the XLA twin
+``gram_soa_xla`` also rounds gL).  A V entry is the sum of a point's slots
+that share a camera, so kernel and plain versions sum those slots first
+and round the sum, as the reference does.
+
+The kernel reads the camera ids through a ``GramPlan`` (``gram_plan``):
+each point's distinct cameras and the camera-sorted observation list.
+The ids do not change within a solve, so the solvers build it once and
+pass it to every Gram call; with it the launch does no sort and no host
+synchronisation.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from privacy_preserving_sfm_torch.kernels import build as kernels
 
 _LANE = 128
-# Column cameras per CTA strip of the Gram kernel: the strip (6, 6*CB)
-# is held in shared memory (36 KB in either precision).
-_GRAM_CAM_BLOCK = {torch.float32: 256, torch.float64: 128}
+# Column cameras per CTA strip of the Gram kernel's pass 2: eight warp
+# strips (6, 6*CB) are held in shared memory (72 KB in either precision).
+_GRAM_CAM_BLOCK = {torch.float32: 64, torch.float64: 32}
+# Pass 2 splits a camera's observations over up to _MAX_SPLITS CTAs until
+# the grid has about _TARGET_CTAS useful CTAs (three resident per SM on
+# the H100's 132).
+_TARGET_CTAS = 396
+_MAX_SPLITS = 8
 _PRECISIONS = ("f32", "bf16")
 
 
@@ -108,6 +118,68 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(x.dtype)
 
 
+class GramPlan(NamedTuple):
+    """What the Gram kernel needs of the camera ids, built once per solve
+    by ``gram_plan`` (the ids do not change within a solve).
+
+    ``slot_d`` is in the layout of the camera ids it was built from
+    (``layout`` "soa": (K, P); "aos": (P, K)); the rest is layout-free.
+    All int32.
+    """
+    layout: str
+    num_cams: int
+    slot_d: torch.Tensor   # each slot's distinct-camera index j, -1: none
+    dcam: torch.Tensor     # (P, M) distinct cameras, ascending, -1 tail
+    count: torch.Tensor    # (P,) distinct cameras of each point
+    obs: torch.Tensor      # (P*M,) rows p*M + j by (camera, point); the
+    #                        first offsets[C] are the observations
+    offsets: torch.Tensor  # (C + 1,) each camera's range of obs
+
+
+def gram_plan(cam: torch.Tensor, num_cams: int, layout: str) -> GramPlan:
+    """The Gram plan of camera ids ``cam`` ((K, P) for "soa", (P, K) for
+    "aos"; negative = no camera), in torch ops on cam's device.  The only
+    host read is the size M (the most distinct cameras of a point)."""
+    if layout not in ("soa", "aos"):
+        raise ValueError(f"layout must be 'soa' or 'aos', got {layout!r}")
+    cam_pk = (cam.T if layout == "soa" else cam).long()
+    P, K = cam_pk.shape
+    C = num_cams
+    if K * P >= 2 ** 31:
+        raise ValueError(f"the Gram kernel indexes slots in int32; "
+                         f"K * P = {K * P} is too large")
+    dev = cam.device
+    valid = cam_pk >= 0
+    # Each point's slots sorted by (camera, slot); invalid slots sort
+    # last.  The j-th camera group of a point is its j-th distinct camera.
+    skey, sk = torch.sort(torch.where(valid, cam_pk, C) * K
+                          + torch.arange(K, device=dev), dim=1)
+    sc = skey // K
+    lead = sc < C
+    lead[:, 1:] &= sc[:, 1:] != sc[:, :-1]
+    j_sorted = torch.cumsum(lead, 1) - 1
+    slot_d = torch.empty_like(sk).scatter_(1, sk, j_sorted)
+    slot_d = torch.where(valid, slot_d, -1)
+    count = lead.sum(1)
+    M = int(count.max()) if P else 0
+    if P * M >= 2 ** 31:
+        raise ValueError(f"the Gram kernel indexes rows in int32; "
+                         f"P * M = {P * M} is too large")
+    dcam = torch.full((P, K + 1), -1, dtype=torch.long, device=dev)
+    dcam.scatter_(1, torch.where(lead, j_sorted, K), sc)
+    dcam = dcam[:, :M]
+    pts = torch.arange(P, device=dev)[:, None]
+    keys, obs = torch.sort(torch.where(dcam >= 0, dcam * P + pts, C * P)
+                           .reshape(-1))
+    offsets = torch.searchsorted(
+        keys, torch.arange(C + 1, device=dev) * P)
+    if layout == "soa":
+        slot_d = slot_d.T
+    i32 = torch.int32
+    return GramPlan(layout, C, slot_d.to(i32).contiguous(), dcam.to(i32),
+                    count.to(i32), obs.to(i32), offsets.to(i32))
+
+
 def _expand_v(blocks: torch.Tensor, cam: torch.Tensor,
               num_cams: int) -> torch.Tensor:
     """V (3P, 6C) from blocks (P, K, 3, 6): each slot's block is added
@@ -123,6 +195,31 @@ def _expand_v(blocks: torch.Tensor, cam: torch.Tensor,
     return V[:, :, :C, :].reshape(3 * P, 6 * C)
 
 
+def compact_v_plain(LH: torch.Tensor, gL: torch.Tensor, plan: GramPlan,
+                    precision: str = "f32"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the Gram kernel's pass 1 on AoS blocks LH
+    (P, K, 3, 6), gL (P, 3): ``Vc`` (P, M, 3, 6), each point's blocks
+    summed per distinct camera, in slot order (V's nonzero entries:
+    ``Vc[p, j]`` is V's block of point p and camera ``plan.dcam[p, j]``),
+    and the rhs terms ``Vc[p, j]^T gL[p]`` (P, M, 6) from the unrounded
+    sums.  With ``precision="bf16"`` Vc is then rounded to bfloat16."""
+    _check_precision(precision)
+    P, K = LH.shape[:2]
+    M = plan.dcam.shape[1]
+    slot_d = plan.slot_d.T if plan.layout == "soa" else plan.slot_d
+    d = torch.where(slot_d < 0, M, slot_d).long()
+    Vc = LH.new_zeros(P, M + 1, 3, 6)
+    pts = torch.arange(P, device=LH.device)
+    for k in range(K):
+        Vc[pts, d[:, k]] += LH[:, k]
+    Vc = Vc[:, :M]
+    rc = torch.einsum("pmai,pa->pmi", Vc, gL)
+    if precision == "bf16":
+        Vc = _round_bf16(Vc)
+    return Vc, rc
+
+
 def gram_aos_plain(LH: torch.Tensor, gL: torch.Tensor, obs_cam: torch.Tensor,
                    num_cams: int, precision: str = "f32"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,14 +228,14 @@ def gram_aos_plain(LH: torch.Tensor, gL: torch.Tensor, obs_cam: torch.Tensor,
     Materializes V (3P, 6C) and computes ``S_corr = V^T V`` and
     ``rhs_corr = V^T vec(gL)`` as two matrix products, the twin of the
     reference's ``build_u_matrix`` followed by its one Gram product.  With
-    ``precision="bf16"`` the blocks are rounded before V is built for
-    ``S_corr`` (see the module note).
+    ``precision="bf16"`` V's entries are rounded for ``S_corr`` only (see
+    the module note).
     """
     _check_precision(precision)
     V = _expand_v(LH, obs_cam, num_cams)
     rhs = V.T @ gL.reshape(-1)
     if precision == "bf16":
-        V = _expand_v(_round_bf16(LH), obs_cam, num_cams)
+        V = _round_bf16(V)
     return V.T @ V, rhs
 
 
@@ -169,28 +266,45 @@ def _check_gram_inputs(name, lh, gL, cam, lh_shape, gl_shape, cam_shape,
         raise ValueError(f"{name} inputs must share one device")
 
 
-def _camera_order(cam_kp: torch.Tensor, num_cams: int):
-    """The kernel's camera-sorted observation list: flat slot ids k*P + p
-    ordered by (camera, point, slot), and each camera's offsets into it
-    (C + 1,), both int32.  The sort keys are unique, so the order is
-    fixed.  Negative camera ids are left out."""
-    K, P = cam_kp.shape
-    if K * P >= 2 ** 31:
-        raise ValueError(f"the Gram kernel indexes slots in int32; "
-                         f"K * P = {K * P} is too large")
-    dev = cam_kp.device
-    flat = cam_kp.reshape(-1).long()
-    slot = torch.arange(K * P, device=dev)
-    valid = flat >= 0
-    slot = slot[valid]
-    cams = flat[valid]
-    pk = (slot % P) * K + slot // P
-    _, perm = torch.sort(cams * (K * P) + pk)
-    order = slot[perm].to(torch.int32)
-    counts = torch.bincount(cams, minlength=num_cams)
-    offsets = torch.zeros(num_cams + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return order, offsets.to(torch.int32)
+def _check_plan(name, plan, layout, cam, num_cams):
+    if (plan.layout, plan.num_cams, tuple(plan.slot_d.shape)) != (
+            layout, num_cams, tuple(cam.shape)):
+        raise ValueError(f"{name} takes a {layout!r} plan of {num_cams} "
+                         f"cameras and slots {tuple(cam.shape)}; got "
+                         f"{plan.layout!r}, {plan.num_cams}, "
+                         f"{tuple(plan.slot_d.shape)}")
+    if plan.slot_d.device != cam.device:
+        raise ValueError(f"{name} plan must lie on the inputs' device")
+
+
+def _strip_splits(num_cams: int, cam_block: int) -> int:
+    """Splits of each camera's observation list (pass 2's grid z): enough
+    CTAs to fill the card where C is small, 1 from about 400 CTAs on."""
+    C, CB = num_cams, cam_block
+    ctas = sum(min(C, (b + 1) * CB) for b in range(-(-C // CB)))
+    return max(1, min(_MAX_SPLITS, -(-_TARGET_CTAS // max(ctas, 1))))
+
+
+def _gram_cuda(name, launch, lh, gL, cam, num_cams, precision, plan,
+               layout):
+    if plan is None:
+        plan = gram_plan(cam, num_cams, layout)
+    else:
+        _check_plan(name, plan, layout, cam, num_cams)
+    C = num_cams
+    n = 6 * C
+    P, M = plan.dcam.shape
+    cam_block = _GRAM_CAM_BLOCK[lh.dtype]
+    splits = _strip_splits(C, cam_block)
+    S, rhs = _gram_out(lh, C)
+    like = dict(dtype=lh.dtype, device=lh.device)
+    Vc = torch.empty(P, M, 24, **like)
+    ws = torch.empty((splits, n, n) if splits > 1 else (0,), **like)
+    ws_rhs = torch.empty((splits, n) if splits > 1 else (0,), **like)
+    launch(lh.contiguous(), gL.contiguous(), plan.slot_d, plan.dcam,
+           plan.count, plan.obs, plan.offsets, Vc, ws, ws_rhs, S, rhs,
+           cam_block, splits, precision == "bf16")
+    return S, rhs
 
 
 def _gram_out(lh: torch.Tensor, num_cams: int):
@@ -199,62 +313,53 @@ def _gram_out(lh: torch.Tensor, num_cams: int):
             torch.empty(n, dtype=lh.dtype, device=lh.device))
 
 
-def _gram_soa_cuda(lh_stack, gL, cam_kp, num_cams, precision):
-    RK, P = lh_stack.shape
-    K = RK // 18
-    _check_gram_inputs("gram_soa", lh_stack, gL, cam_kp, (18 * K, P), (3, P),
-                       (K, P), precision)
-    cam = cam_kp.to(torch.int32).contiguous()
-    order, offsets = _camera_order(cam, num_cams)
-    S, rhs = _gram_out(lh_stack, num_cams)
-    kernels.launch_schur_gram(
-        lh_stack.contiguous(), gL.contiguous(), cam, order, offsets, S, rhs,
-        min(num_cams, _GRAM_CAM_BLOCK[lh_stack.dtype]), precision == "bf16")
-    return S, rhs
-
-
-def _gram_aos_cuda(LH, gL, obs_cam, num_cams, precision):
-    P, K = obs_cam.shape
-    _check_gram_inputs("gram_aos", LH, gL, obs_cam, (P, K, 3, 6), (P, 3),
-                       (P, K), precision)
-    cam = obs_cam.to(torch.int32).contiguous()
-    order, offsets = _camera_order(cam.T, num_cams)
-    S, rhs = _gram_out(LH, num_cams)
-    kernels.launch_schur_gram_aos(
-        LH.contiguous(), gL.contiguous(), cam, order, offsets, S, rhs,
-        min(num_cams, _GRAM_CAM_BLOCK[LH.dtype]), precision == "bf16")
-    return S, rhs
-
-
 def gram_soa(lh_stack: torch.Tensor, gL: torch.Tensor, cam_kp: torch.Tensor,
-             num_cams: int, precision: str = "f32"
+             num_cams: int, precision: str = "f32",
+             plan: Optional[GramPlan] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """S_corr (6C, 6C) and rhs_corr (6C,) in the 6c+i layout.
 
     lh_stack: (18K, P), rows (a*6+i)*K + k; gL: (3, P); cam_kp: (K, P)
     integer camera ids (negative = no camera).  CPU tensors take
     ``gram_soa_plain``; CUDA tensors launch ``kernels/schur_gram.cu``,
-    which takes any C and K (no C <= 1024 / K <= 16 gate).
+    which takes any C and K (no C <= 1024 / K <= 16 gate).  ``plan`` is
+    ``gram_plan(cam_kp, num_cams, "soa")``, built here when not given;
+    given, the launch does no host synchronisation.
     """
     if _device_kind(lh_stack) == "cpu":
+        if plan is not None:
+            _check_plan("gram_soa", plan, "soa", cam_kp, num_cams)
         return gram_soa_plain(lh_stack, gL, cam_kp, num_cams, precision)
-    return _gram_soa_cuda(lh_stack, gL, cam_kp, num_cams, precision)
+    RK, P = lh_stack.shape
+    K = RK // 18
+    _check_gram_inputs("gram_soa", lh_stack, gL, cam_kp, (18 * K, P), (3, P),
+                       (K, P), precision)
+    return _gram_cuda("gram_soa", kernels.launch_schur_gram, lh_stack, gL,
+                      cam_kp, num_cams, precision, plan, "soa")
 
 
 def gram_aos(LH: torch.Tensor, gL: torch.Tensor, obs_cam: torch.Tensor,
-             num_cams: int, precision: str = "f32"
+             num_cams: int, precision: str = "f32",
+             plan: Optional[GramPlan] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """S_corr (6C, 6C) and rhs_corr (6C,) in the 6c+i layout.
 
     LH: (P, K, 3, 6) = L^T Hcp per slot; gL: (P, 3); obs_cam: (P, K)
     integer camera ids (negative = no camera: give padding slots -1).  CPU
-    tensors take ``gram_aos_plain``; CUDA tensors launch the AoS mode of
-    ``kernels/schur_gram.cu``, for any C and K (the TPU kernel's C <= 256,
-    K <= 16 gate does not apply).
+    tensors take ``gram_aos_plain``; CUDA tensors launch the AoS staging
+    of ``kernels/schur_gram.cu``, for any C and K (the TPU kernel's
+    C <= 256, K <= 16 gate does not apply).  ``plan`` is
+    ``gram_plan(obs_cam, num_cams, "aos")``, as for ``gram_soa``.
     """
     if _device_kind(LH) == "cpu":
+        if plan is not None:
+            _check_plan("gram_aos", plan, "aos", obs_cam, num_cams)
         return gram_aos_plain(LH, gL, obs_cam, num_cams, precision)
-    return _gram_aos_cuda(LH, gL, obs_cam, num_cams, precision)
+    P, K = obs_cam.shape
+    _check_gram_inputs("gram_aos", LH, gL, obs_cam, (P, K, 3, 6), (P, 3),
+                       (P, K), precision)
+    return _gram_cuda("gram_aos", kernels.launch_schur_gram_aos, LH, gL,
+                      obs_cam, num_cams, precision, plan, "aos")
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ and the port.  ``gram_aos_plain`` is held against the reference's
 ``gram_fused`` TPU kernel in interpret mode (float32, the tolerances of
 ``tests/test_schur_explicit.py``) and, in bf16 mode, against the
 interpret-mode kernel's bf16 mode (1e-5 of max|S|; distinct cameras per
-point, where per-slot and per-entry rounding agree).
+point here, repeated ones in ``tests/test_torch_gram_plan.py``).
 ``bundle_adjust_dense`` in both Schur modes is held against the
 reference's (``gram_mode="xla"``) as ``tests/test_torch_ba_soa.py`` holds
 the SoA solver: one LM step to float64 rounding, 12 steps to the same
@@ -229,9 +229,9 @@ def test_padding_slots_reach_the_gram_as_minus_one(solver, monkeypatch):
     real = getattr(tsp, name)
     calls = []
 
-    def spy(lh, gL, cam, C, precision="f32"):
+    def spy(lh, gL, cam, C, precision="f32", plan=None):
         calls.append((lh, gL, cam.clone(), C))
-        return real(lh, gL, cam, C, precision)
+        return real(lh, gL, cam, C, precision, plan=plan)
 
     monkeypatch.setattr(tsp, name, spy)
     opts = tba.BAOptions(max_iterations=2, schur_mode="explicit")

@@ -45,10 +45,17 @@ def _gram_inputs(seed, K, P, C, dtype, device, repeat=False):
     return lh, gl, torch.tensor(cam, device=device)
 
 
+# K of the main path (6), a track of two, a long ragged track and a global
+# BA's K = 128; C above the strip width (64 cameras in float32, 32 in
+# float64), so a camera's columns span several strips, and below it,
+# where a camera's observations are split over several CTAs.
+GRAM_CASES = [(4, 37, 9, False), (6, 900, 40, True), (32, 300, 300, False),
+              (2, 700, 150, True), (6, 2000, 150, True),
+              (32, 400, 150, True), (128, 300, 150, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K,P,C,repeat", [(4, 37, 9, False),
-                                          (6, 900, 40, True),
-                                          (32, 300, 300, False)])
+@pytest.mark.parametrize("K,P,C,repeat", GRAM_CASES)
 def test_gram_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
     lh, gl, cam = _gram_inputs(1, K, P, C, dtype, cuda, repeat)
     S_ref, r_ref = tsp.gram_soa_plain(lh.double(), gl.double(), cam, C)
@@ -73,9 +80,7 @@ def _aos(lh, gl, cam):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K,P,C,repeat", [(4, 37, 9, False),
-                                          (6, 900, 40, True),
-                                          (16, 300, 300, False)])
+@pytest.mark.parametrize("K,P,C,repeat", GRAM_CASES)
 def test_gram_aos_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
     LH, gl, cam = _aos(*_gram_inputs(5, K, P, C, dtype, cuda, repeat))
     S_ref, r_ref = tsp.gram_aos_plain(LH.double(), gl.double(), cam, C)
@@ -91,20 +96,61 @@ def test_gram_aos_kernel_matches_plain(cuda, dtype, K, P, C, repeat):
     assert torch.equal(S, S2) and torch.equal(r, r2)
 
 
-def test_gram_aos_kernel_equals_soa_kernel(cuda):
-    """One kernel body, two stagings: the same sums in the same order."""
-    lh, gl, cam = _gram_inputs(6, 6, 500, 30, torch.float32, cuda, True)
-    S, r = tsp.gram_soa(lh, gl, cam, 30)
-    S2, r2 = tsp.gram_aos(*_aos(lh, gl, cam), 30)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,C", [(2, 150), (6, 30), (32, 150), (128, 150)])
+def test_gram_aos_kernel_equals_soa_kernel(cuda, K, C, dtype, precision):
+    """Two stagings, one compacted V and one strip pass: the same sums in
+    the same order."""
+    lh, gl, cam = _gram_inputs(6, K, 500, C, dtype, cuda, True)
+    S, r = tsp.gram_soa(lh, gl, cam, C, precision)
+    S2, r2 = tsp.gram_aos(*_aos(lh, gl, cam), C, precision)
     assert torch.equal(S, S2) and torch.equal(r, r2)
 
 
 @pytest.mark.parametrize("layout", ["soa", "aos"])
+def test_gram_kernel_with_plan_does_not_sync(cuda, layout):
+    """Given the solve's plan, the launch reads nothing back to the host,
+    and gives what a plan built per call gives."""
+    lh, gl, cam = _gram_inputs(8, 6, 2000, 150, torch.float32, cuda, True)
+    args = (lh, gl, cam) if layout == "soa" else _aos(lh, gl, cam)
+    gram = tsp.gram_soa if layout == "soa" else tsp.gram_aos
+    plan = tsp.gram_plan(args[2], 150, layout)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S, r = gram(*args, 150, plan=plan)
+        S16, r16 = gram(*args, 150, "bf16", plan=plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    S2, r2 = gram(*args, 150)
+    assert torch.equal(S, S2) and torch.equal(r, r2)
+    S3, r3 = gram(*args, 150, "bf16")
+    assert torch.equal(S16, S3) and torch.equal(r16, r3)
+
+
+@pytest.mark.parametrize("layout", ["soa", "aos"])
+def test_gram_kernel_plan_of_other_layout_raises(cuda, layout):
+    lh, gl, cam = _gram_inputs(8, 6, 50, 10, torch.float32, cuda)
+    other = "aos" if layout == "soa" else "soa"
+    if layout == "soa":
+        args, gram, plan = (lh, gl, cam), tsp.gram_soa, tsp.gram_plan(
+            cam.T.contiguous(), 10, other)
+    else:
+        args, gram, plan = _aos(lh, gl, cam), tsp.gram_aos, tsp.gram_plan(
+            cam, 10, other)
+    with pytest.raises(ValueError, match="plan"):
+        gram(*args, 10, plan=plan)
+
+
+@pytest.mark.parametrize("layout", ["soa", "aos"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gram_bf16_kernel_matches_plain(cuda, layout, dtype):
-    """bf16 mode: the same rounding on both sides, so only the sum order
-    differs (1e-4 of max|S| in float32)."""
-    lh, gl, cam = _gram_inputs(7, 6, 900, 40, dtype, cuda, True)
+@pytest.mark.parametrize("K", [6, 128])
+def test_gram_bf16_kernel_matches_plain(cuda, layout, dtype, K):
+    """bf16 mode with repeated cameras in points: both sides round V's
+    entries (sums of a point's slots in one camera), so only the sum
+    order differs (1e-4 of max|S| in float32)."""
+    lh, gl, cam = _gram_inputs(7, K, 900, 40, dtype, cuda, True)
     if layout == "aos":
         args = _aos(lh, gl, cam)
         kernel, plain = tsp.gram_aos, tsp.gram_aos_plain
