@@ -15,10 +15,12 @@ to the dense-block implicit solver (phase ``dense_implicit``); and
 ``exhaustive_matcher`` on a seeded synthetic database of 64 images x 8,192
 descriptors (the reference's default feature cap; 2,016 pairs), checked
 against the generator's true correspondences, against the plain version
-on 16 pairs and against the bounded-memory block mode.  Prints one line
-per phase and each phase's seconds, then a JSON
-line with each kernel's launches, error and times, the card's name and
-power limit, and as its last line
+on 16 pairs and against the bounded-memory block mode, then once more
+under torch.profiler.  Prints one line per phase and each phase's
+seconds, then a JSON line with each kernel's launches, error, times and
+bound (the larger of its operations at the H100's peak for their type and
+its bytes at the memory rate), the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed phase
 exits non-zero without that line; so does a machine without a CUDA
 device, or a directory without the ``privacy_preserving_sfm_torch``
@@ -60,11 +62,29 @@ LM_ITERS = 20
 # default cap of 100 LM iterations.
 IMPLICIT = dict(num_images=1280, num_points=100000, obs_per_point=6,
                 meas_noise=2e-4)
-# (B, N1, N2, special) for the match kernel checks: the production shape
+# (B, N1, N2, kind) for the match kernel checks: the production shape
 # (the reference's max_num_features = 8192), padding with duplicates and
-# ties, and an N1 that is not a multiple of 128.
-MATCH_SHAPES = [(4, 8192, 8192, False), (3, 384, 512, True),
-                (2, 1000, 8192, False)]
+# ties ("ties"), an N1 that is not a multiple of 128; the exhaustive
+# matcher's launch (its chunk of 64 pairs), one pair (match_descriptors),
+# all-255 descriptors at the top of the dot range ("top"), and an N2 that
+# is not a multiple of 128.
+MATCH_SHAPES = [(4, 8192, 8192, None), (3, 384, 512, "ties"),
+                (2, 1000, 8192, None), (64, 8192, 8192, None),
+                (1, 8192, 8192, None), (2, 8192, 8192, "top"),
+                (4, 8192, 8100, None)]
+# The match kernel's main-path shape, reported in the kernels line.
+MATCH_MAIN = (64, 8192, 8192)
+# The plain version holds the (B, N1, N2) float32 dots and copies of them:
+# it runs on at most this many pairs a call.
+PLAIN_PAIRS = 4
+# Published H100 SXM peaks (NVIDIA data sheet, dense): the least time of a
+# kernel's work is the larger of its operations at the peak of their type
+# and its bytes (each input read once, each output written once) at the
+# memory rate.
+PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12    # outside the tensor cores
+PEAK_F64 = 67e12    # on the tensor cores (34e12 outside them)
+HBM_BYTES_S = 3.35e12
 MATCHER = dict(num_images=64, num_features=8192)
 # Thresholds of the matcher phase against the generator's truth, set from
 # the first run on an H100 (precision 1.00000, recall 0.97531).
@@ -130,19 +150,38 @@ def phase_device():
     return card
 
 
+def kernel_name(mangled):
+    """The ``*_kernel`` identifier inside a mangled name (each identifier
+    there follows its length), or the mangled name."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        word = mangled[end:end + int(m.group(1))]
+        if word.endswith("_kernel"):
+            return word
+    return mangled
+
+
 def phase_build():
     from privacy_preserving_sfm_torch.kernels import build
 
     t0 = time.perf_counter()
     build.library()
     dt = time.perf_counter() - t0
-    with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
-        ptxas = [ln.strip() for ln in f
-                 if "registers" in ln or "spill" in ln]
     phase("build", f"kernels built and loaded in {dt:.2f} s "
           f"({', '.join(build.SOURCES)})")
-    for ln in ptxas:
-        phase("build", ln)
+    # ptxas reports each entry function, then its spills and registers.
+    name, spills = "?", ""
+    with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
+        for ln in f:
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                name = kernel_name(entry.group(1))
+            elif "spill" in ln:
+                spills = ln.strip()
+            elif "registers" in ln:
+                regs = re.search(r"Used (\d+) registers", ln)
+                phase("build", f"{name}: {regs.group(1) if regs else '?'} "
+                      f"registers, {spills}")
 
 
 def gram_inputs(K, P, C, dtype, device, seed):
@@ -157,8 +196,12 @@ def gram_inputs(K, P, C, dtype, device, seed):
 
 
 def useful_gflop(plan):
-    """The sparse Gram's useful work: 2 * 108 * sum_p m_p^2 flops."""
-    return 216.0 * float((plan.count.double() ** 2).sum()) / 1e9
+    """GFLOP of the work one Gram needs, S being symmetric: for each point
+    of m distinct cameras, 108 FMAs for each of its m (m - 1) / 2 upper
+    camera pairs, 63 for the i1 <= i2 half of each diagonal block and 18
+    for each camera's rhs term; two flops an FMA."""
+    m = plan.count.double()
+    return 2.0 * float((54.0 * m * (m - 1) + 81.0 * m).sum()) / 1e9
 
 
 def gram_times(gram, plan_of, a, b, cam, C, reps, precision="f32"):
@@ -172,9 +215,20 @@ def gram_times(gram, plan_of, a, b, cam, C, reps, precision="f32"):
     return ms, plan_ms, call_ms, plan
 
 
-def times_text(ms, plan_ms, call_ms, plain_ms, plan):
+def gram_bound(K, P, C, plan, itemsize):
+    """bound_ms and bound_by of one Gram: its useful flops at the float32
+    (or float64) peak, against lh, gL, the camera ids, S and rhs once
+    each."""
+    peak = PEAK_F32 if itemsize == 4 else PEAK_F64
+    nbytes = (18 * K * P + 3 * P + (6 * C) ** 2 + 6 * C) * itemsize + 4 * K * P
+    bound_ms, bound_by = bound(useful_gflop(plan) * 1e9, peak, nbytes)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def times_text(ms, plan_ms, call_ms, plain_ms, plan, bnd):
     return (f"kernel {ms:.4f} ms (launch alone, plan prebuilt; "
-            f"{useful_gflop(plan) / ms * 1e3:.1f} useful GFLOP/s), plan "
+            f"{useful_gflop(plan) / ms * 1e3:.1f} useful GFLOP/s; bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}), plan "
             f"build {plan_ms:.4f} ms, plan per call {call_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
 
@@ -210,19 +264,21 @@ def phase_gram(device, card, reps=5):
                 schur_pcg.gram_soa, plan_of, a, b, cam, C, reps)
             plain_ms = cuda_ms(
                 lambda: schur_pcg.gram_soa_plain(a, b, cam, C), reps)
+            bnd = gram_bound(K, P, C, plan, a.element_size())
             name = str(dtype).replace("torch.", "")
             phase("gram", f"K={K} P={P} C={C} {name}: max|dS|={err_s:.3e} "
                   f"(tol {tol * s_scale:.3e}) max|drhs|={err_r:.3e} "
                   f"(tol {tol * r_scale:.3e}) max|S-S^T|={asym:.3e} "
                   f"bit-equal={bit_equal} "
-                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan)} "
+                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan, bnd)} "
                   f"| {card}")
             check(err_s <= tol * s_scale, "Gram S disagrees")
             check(err_r <= tol * r_scale, "Gram rhs disagrees")
             check(asym <= 1e-6 * s_scale, "Gram S not symmetric")
             check(bit_equal, "Gram kernel not deterministic")
             if (K, P, C) == GRAM_SHAPES[0] and dtype == torch.float32:
-                main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms)
+                main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms,
+                                  **bnd)
         grams[C] = S_ref
         del lh, gl, S_ref
     return main_stats, grams
@@ -286,19 +342,21 @@ def phase_gram_aos(device, card, reps=5):
                 schur_pcg.gram_aos, plan_of, a, b, cam, C, reps)
             plain_ms = cuda_ms(
                 lambda: schur_pcg.gram_aos_plain(a, b, cam, C), reps)
+            bnd = gram_bound(K, P, C, plan, a.element_size())
             name = str(dtype).replace("torch.", "")
             phase("gram_aos", f"{what} {name}: max|dS|={err_s:.3e} "
                   f"(tol {tol * s_scale:.3e}) max|drhs|={err_r:.3e} "
                   f"(tol {tol * r_scale:.3e}) max|S-S^T|={asym:.3e} "
                   f"bit-equal={bit_equal} "
-                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan)} "
+                  f"{times_text(ms, plan_ms, call_ms, plain_ms, plan, bnd)} "
                   f"| {card}")
             check(err_s <= tol * s_scale, "AoS Gram S disagrees")
             check(err_r <= tol * r_scale, "AoS Gram rhs disagrees")
             check(asym <= 1e-6 * s_scale, "AoS Gram S not symmetric")
             check(bit_equal, "AoS Gram kernel not deterministic")
             if main_stats is None and dtype == torch.float32:
-                main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms)
+                main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms,
+                                  **bnd)
         if (K, P, C, ragged) == shapes[0]:
             phase_gram_bf16(a, b, cam, C, card, reps)
             rep = cam.clone()
@@ -421,12 +479,21 @@ def phase_pcg(device, grams, reps=5):
             plain_ms = cuda_ms(
                 lambda: schur_pcg.pcg_plain(S, M, r, CG_ITERS), reps)
             name = str(dtype).replace("torch.", "")
-            phase("pcg", f"C={C} N={S.shape[0]} iters={CG_ITERS} {name}: "
+            # 2 * iters + 1 products by S or Minv, each read once.
+            N, size = S.shape[0], S.element_size()
+            bound_ms, bound_by = bound(
+                (2 * CG_ITERS + 1) * 2.0 * N * N,
+                PEAK_F32 if size == 4 else PEAK_F64,
+                (2 * N * N + 2 * N) * size)
+            phase("pcg", f"C={C} N={N} iters={CG_ITERS} {name}: "
                   f"|dx|/|x|={rel:.3e} (tol {tol:.0e}) max|dx|={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), plain {plain_ms:.4f} ms")
             check(rel <= tol, "PCG disagrees with pcg_plain")
             if C == PCG_CAMS[0] and dtype == torch.float32:
-                main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=None)
     return main_stats
 
 
@@ -737,10 +804,42 @@ def phase_dense_implicit(device, card, workdir):
     compare_float64("dense_implicit", mapper.last_summary, s64, dt)
 
 
-def match_inputs(b, n1, n2, special, device, seed):
-    """SIFT-convention descriptors on the card; with ``special``, exact
-    duplicates making ties along a row and a column, padding on both
-    sides in pair 1 and a single valid candidate per row in pair 2."""
+def bound(ops, peak, nbytes):
+    """(least ms of the work on the card, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def match_bound(b, n1, n2, both):
+    """bound() of the top-2 search of b pairs: one int8 contraction, and
+    the descriptors and masks (row-only: d2's) read and the three tables
+    of each direction written once."""
+    mask1, out2 = (1, 12) if both else (0, 0)
+    nbytes = b * (n1 * (128 + mask1 + 12) + n2 * (128 + 1 + out2))
+    return bound(2.0 * b * n1 * n2 * 128, PEAK_INT8, nbytes)
+
+
+def host_ms(fn, reps):
+    """Mean host milliseconds to issue ``fn()``, the card running behind,
+    after one warm-up call: the wrapper's host path."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
+def match_inputs(b, n1, n2, kind, device, seed):
+    """SIFT-convention descriptors on the card.  "ties": exact duplicates
+    making ties along a row and a column, padding on both sides in pair 1
+    and a single valid candidate per row in pair 2; "top": all-255 rows
+    and columns in pair 0 (the largest dot, tied across tiles) and every
+    descriptor all-255 in pair 1 (every dot tied at the top)."""
     import numpy as np
     import torch
 
@@ -751,19 +850,34 @@ def match_inputs(b, n1, n2, special, device, seed):
     d2 = sift_like(rng.dirichlet(np.full(128, 0.2), (b, n2)))
     v1 = np.ones((b, n1), bool)
     v2 = np.ones((b, n2), bool)
-    if special:
+    if kind == "ties":
         d2[0, 40] = d2[0, n2 - 1] = d1[0, 7]
         d2[1, 3] = d2[1, 5]
         d1[0, n1 - 1] = d1[0, 7]
         v1[1, (2 * n1) // 3:] = False
         v2[1, n2 // 2:] = False
         v2[2, 1:] = False
+    elif kind == "top":
+        d1[0, 3] = d1[0, n1 - 1] = 255
+        d2[0, 127] = d2[0, 128] = d2[0, n2 - 1] = 255
+        d1[1] = 255
+        d2[1] = 255
     return [torch.from_numpy(a).to(device) for a in (d1, d2, v1, v2)]
+
+
+def plain_chunked(fn, *args):
+    """``fn`` (the plain version) on PLAIN_PAIRS pairs a call, joined."""
+    import torch
+
+    parts = [fn(*(a[i:i + PLAIN_PAIRS] for a in args))
+             for i in range(0, args[0].shape[0], PLAIN_PAIRS)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def phase_match(device, card, reps=5):
     """Match kernel vs its plain version: exact equality of the six
-    tables (three in row-only mode); returns the production shape's
+    tables (three in row-only mode) and two runs bit-equal at every
+    shape; times against the bound.  Returns the main-path shape's
     stats."""
     import torch
 
@@ -772,16 +886,16 @@ def phase_match(device, card, reps=5):
 
     plain = matching._top2_both_batched_plain
     main_stats = None
-    for b, n1, n2, special in MATCH_SHAPES:
-        d1, d2, v1, v2 = match_inputs(b, n1, n2, special, device,
-                                      seed=n1 + n2)
+    for b, n1, n2, kind in MATCH_SHAPES:
+        d1, d2, v1, v2 = match_inputs(b, n1, n2, kind, device,
+                                      seed=n1 + n2 + b)
         ones = torch.ones_like(v1)
         got = mk.top2_scores_bidir(d1, d2, v1, v2)
         again = mk.top2_scores_bidir(d1, d2, v1, v2)
         rows = mk.top2_scores(d1, d2, v2)
         torch.cuda.synchronize()
-        ref = plain(d1, d2, v1, v2)
-        ref_rows = plain(d1, d2, ones, v2)[:3]
+        ref = plain_chunked(plain, d1, d2, v1, v2)
+        ref_rows = plain_chunked(plain, d1, d2, ones, v2)[:3]
         exact = all(torch.equal(g, r) for g, r in zip(got, ref))
         exact_rows = all(torch.equal(g, r) for g, r in zip(rows, ref_rows))
         stable = all(torch.equal(g, h) for g, h in zip(got, again))
@@ -790,25 +904,51 @@ def phase_match(device, card, reps=5):
         del ref, ref_rows, got, again, rows
         ms = cuda_ms(lambda: mk.top2_scores_bidir(d1, d2, v1, v2), reps)
         ms_rows = cuda_ms(lambda: mk.top2_scores(d1, d2, v2), reps)
-        plain_ms = cuda_ms(lambda: plain(d1, d2, v1, v2), reps)
-        plain_rows_ms = cuda_ms(lambda: plain(d1, d2, ones, v2)[:3], reps)
-        ops = 2.0 * b * n1 * n2 * 128
-        phase("match", f"B={b} N1={n1} N2={n2}"
-              f"{' (padding, duplicates, ties)' if special else ''}: "
-              f"six tables exact={exact}, row-only exact={exact_rows}, "
-              f"bit-equal across runs={stable}, max|diff|={err!r} | "
-              f"bidir kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} T int-op/s, "
-              f"{ms / b * 1e3:.1f} us/pair), plain {plain_ms:.4f} ms | "
-              f"row-only kernel {ms_rows:.4f} ms, plain "
-              f"{plain_rows_ms:.4f} ms | {card}")
+        plain_ms = cuda_ms(lambda: plain_chunked(plain, d1, d2, v1, v2),
+                           reps)
+        plain_rows_ms = cuda_ms(
+            lambda: plain_chunked(plain, d1, d2, ones, v2)[:3], reps)
+        host = host_ms(lambda: mk.top2_scores_bidir(d1, d2, v1, v2), reps)
+        bound_ms, bound_by = match_bound(b, n1, n2, True)
+        rows_bound_ms, _ = match_bound(b, n1, n2, False)
+        int_mm = int_mm_ms(n1, n2, device, reps)
+        what = f" ({kind})" if kind else ""
+        phase("match", f"B={b} N1={n1} N2={n2}{what}: six tables exact="
+              f"{exact}, row-only exact={exact_rows}, bit-equal across runs="
+              f"{stable}, max|diff|={err!r} | bidir kernel {ms:.4f} ms = "
+              f"{ms / b * 1e3:.2f} us/pair, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {100 * bound_ms / ms:.1f} % of it reached), "
+              f"host path {host:.4f} ms a call, "
+              f"plain {plain_ms:.4f} ms | row-only kernel {ms_rows:.4f} ms "
+              f"= {ms_rows / b * 1e3:.2f} us/pair, bound {rows_bound_ms:.4f} "
+              f"ms ({100 * rows_bound_ms / ms_rows:.1f} %), plain "
+              f"{plain_rows_ms:.4f} ms | torch._int_mm on one pair's int8 "
+              f"operands (contraction only, not the same function): "
+              f"{int_mm} | plain on {PLAIN_PAIRS} pairs a call | {card}")
         check(exact, "match kernel disagrees with its plain version")
         check(exact_rows, "row-only match kernel disagrees")
         check(stable, "match kernel not deterministic")
-        if main_stats is None:
-            main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if (b, n1, n2) == MATCH_MAIN:
+            main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None)
         del d1, d2, v1, v2
         torch.cuda.empty_cache()
     return main_stats
+
+
+def int_mm_ms(n1, n2, device, reps):
+    """Text: ms of ``torch._int_mm`` on (n1, 128) x (128, n2) int8, a
+    yardstick of the contraction alone that the port never calls."""
+    import torch
+
+    a = torch.randint(-128, 128, (n1, 128), dtype=torch.int8, device=device)
+    b = torch.randint(-128, 128, (n2, 128), dtype=torch.int8, device=device)
+    try:
+        ms = cuda_ms(lambda: torch._int_mm(a, b.t()), reps)
+    except RuntimeError as e:  # a yardstick only: report, do not fail
+        return f"not available ({str(e).splitlines()[0][:80]})"
+    return f"{ms:.4f} ms"
 
 
 def _blobs(path, pairs=None):
@@ -916,7 +1056,46 @@ def phase_matcher(device, card, workdir):
           f"{time.perf_counter() - t0:.3f} s: blobs equal to the resident "
           f"run={same}")
     check(same, "block mode differs from resident mode")
+
+    # The same run once more on a fresh database under torch.profiler.
+    prof_db = os.path.join(workdir, "prof.db")
+    shutil.copy(fresh, prof_db)
+    device_split("matcher", card, lambda: ppsfm.main([
+        "exhaustive_matcher", "--database_path", prof_db, "--device",
+        device.type]), "match_top2_kernel")
     return launches
+
+
+def device_split(name, card, run, kernel, top=6):
+    """``run()`` under torch.profiler: wall, kernel time and busy share,
+    ``kernel``'s share of kernel time and the ``top`` device events by
+    self device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host = {e.key for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = sorted((e for e in averages
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.key not in host and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in events)
+    mine = sum(e.self_device_time_total for e in events if kernel in e.key)
+    each = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                     f"x{e.count}" for e in events[:top])
+    phase(name, f"under torch.profiler: wall {wall:.3f} s, kernel time "
+          f"{total / 1e3:.3f} ms (busy {total / 1e4 / wall:.1f} %), "
+          f"{kernel} {mine / 1e3:.3f} ms = {100 * mine / max(total, 1):.1f} "
+          f"% of kernel time; top: {each} | {card}")
+    check(mine > 0, f"the profiled run launched no {kernel}")
 
 
 def main() -> int:

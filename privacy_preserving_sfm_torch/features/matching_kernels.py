@@ -13,6 +13,9 @@ counts as -1e9, a row or column with no valid candidate gives best =
 second = -1e9 and idx = 0, and one with a single valid candidate gives
 second = -1e9.  (The TPU kernel biased invalid entries by -2^26 instead
 and returned those biased values for them.)
+
+The kernel computes the column direction as the row direction of the
+swapped pair in the same launch, so it needs no scratch.
 """
 
 from __future__ import annotations
@@ -63,18 +66,19 @@ def _launch(d1, d2, valid1, valid2, both: bool):
     if d1.data_ptr() % 16 or d2.data_ptr() % 16:
         raise ValueError("the match kernel needs 16-byte aligned "
                          "descriptor tables")
+    if B > 65535:
+        raise ValueError(f"the match kernel takes at most 65535 pairs a "
+                         f"launch, got {B}")
     f32 = dict(dtype=torch.float32, device=d1.device)
     i32 = dict(dtype=torch.int32, device=d1.device)
     rows = (torch.empty(B, N1, **f32), torch.empty(B, N1, **f32),
             torch.empty(B, N1, **i32))
     cols = None
     if both:
-        nrb = -(-N1 // kernels.MATCH_ROWS)
         cols = (torch.empty(B, N2, **f32), torch.empty(B, N2, **f32),
-                torch.empty(B, N2, **i32),
-                torch.empty(3 * B * nrb * N2, **i32))
+                torch.empty(B, N2, **i32))
     kernels.launch_match_top2(d1, d2, v1, v2, *rows, cols=cols)
-    return rows if cols is None else rows + cols[:3]
+    return rows if cols is None else rows + cols
 
 
 def top2_scores_bidir(d1: torch.Tensor, d2: torch.Tensor,

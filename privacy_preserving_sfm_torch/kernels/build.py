@@ -42,9 +42,8 @@ LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_gram_aos": 0,
 # persistent block per resident slot, at most this many).
 PCG_MAX_BLOCKS = 4096
 
-# Rows per CTA of the match kernel: its column partials hold
-# ceil(N1 / MATCH_ROWS) row blocks.
-MATCH_ROWS = 128
+# Columns per tile of the match kernel (the packed keys' position range).
+MATCH_COLS = 128
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -130,7 +129,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
     lib.ppsfm_match_top2.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                     vp, vp, vp, vp, vp, vp, vp, vp]
+                                     vp, vp, vp, vp, vp, vp, vp]
     lib.ppsfm_match_top2.restype = ci
     _lib = lib
     return lib
@@ -221,13 +220,12 @@ def launch_match_top2(d1: torch.Tensor, d2: torch.Tensor, v1: torch.Tensor,
                       cols: Optional[Tuple[torch.Tensor, ...]] = None):
     """Launch ``match_top2.cu`` on d1 (B, N1, 128), d2 (B, N2, 128) uint8
     and v1 (B, N1), v2 (B, N2) uint8: the row direction into bd12, sd12
-    float32 and idx12 int32 (B, N1).  With ``cols`` = (bd21, sd21, idx21,
-    part), also the column direction (B, N2), through the int32 scratch
-    ``part`` of 3 * B * ceil(N1 / MATCH_ROWS) * N2 elements.  The caller
-    has checked shapes and types."""
+    float32 and idx12 int32 (B, N1); with ``cols`` = (bd21, sd21, idx21),
+    also the column direction (B, N2).  The caller has checked shapes and
+    types."""
     B, N1, _ = d1.shape
     N2 = d2.shape[1]
-    rest = [t.data_ptr() for t in cols] if cols is not None else [None] * 4
+    rest = [t.data_ptr() for t in cols] if cols is not None else [None] * 3
     with torch.cuda.device(d1.device):
         err = library().ppsfm_match_top2(
             d1.data_ptr(), d2.data_ptr(), v1.data_ptr(), v2.data_ptr(), B,

@@ -2,63 +2,105 @@
 // directions for B pairs of uint8 descriptor sets.
 //
 // Replaces the TPU kernels privacy_preserving_sfm_tpu/features/
-// matching_kernels.py:top2_scores_bidir (both directions, the matcher's
-// main path) and top2_scores (the row direction only, a mode of this
-// kernel).  Semantics are those of the plain version
+// matching_kernels.py:250 top2_scores_bidir (both directions, the
+// matcher's main path) and :123 top2_scores (the row direction only, a
+// mode of this kernel).  Semantics are those of the plain version
 // (features/matching.py:_top2_both_batched_plain): dots are exact
 // integers, an invalid row or column counts as -1e9, argmax takes the
 // first occurrence, and the second best masks only the argmax position,
 // so a duplicate of the best gives second == best.  A row or column with
 // no valid candidate gives best = second = -1e9 and idx = 0.
 //
-// What bounds it: compute.  A pair of N1 x N2 descriptors of 128 bytes
-// is 2 * N1 * N2 * 128 integer operations (17.2 G at 8192 x 8192) for
-// 2 MB of input, and every one of the N1 * N2 dots also passes through a
-// top-2 update along its row and along its column.
+// What bounds it on an H100.  A pair of N1 x N2 descriptors of 128 bytes
+// is 2 * N1 * N2 * 128 int8 tensor-core operations: 17.2 G at 8192 x 8192,
+// 8.68 us a pair at the 1,979 TOP/s peak.  Every dot then passes through a
+// top-2 update in each direction: one IMAD (the key, below) and three
+// integer min/max a dot and direction, plus 5 instructions per 64 dots at
+// each tile's end, about 3.1 instructions on the ALU pipe (16 lanes a
+// clock on each of an SM's four schedulers): 67.1 M x 3.1 / (132 SMs x 64
+// a clock) = 25 k clocks, 13-14 us a pair and direction at 1.8-1.98 GHz.
+// That epilogue, not the contraction, is the floor: computing each
+// direction as its own contraction (below) doubles the tensor work to
+// 17.4 us a pair at the peak, which runs beside the epilogue.
 //
 // What the design does about it:
-// * The contraction runs on the tensor cores as
-//   mma.sync.m16n8k32.row.col.s32.u8.u8.s32: unsigned bytes in, exact
-//   int32 sums out (every dot <= 255^2 * 128 < 2^24, so the float32
-//   outputs are exact too).  Nothing is biased or re-centred.
-// * One CTA takes one (pair, 128-row block) and holds its A fragments in
-//   registers; it streams the pair's candidates through shared memory in
-//   128-column tiles, double-buffered with cp.async, so the N1 x N2 dot
-//   matrix never reaches device memory.
-// * The row state (best, second, idx) stays in registers across tiles.
-// * CTAs run in no order, so no column state carries from one to the
-//   next: each CTA writes its row block's column top-2 to a partial table
-//   (3, B, ceil(N1 / 128), N2), and a second short kernel merges the
-//   partials of each column in row-block order.
-// * Every merge is exact and commutative (the larger value wins, the
-//   smaller index on a tie), so results are the same whatever order the
-//   warps, lanes and blocks are combined in: no atomics, bit-identical
-//   from run to run.
+// * Packed keys.  A dot of two uint8 descriptors is at most
+//   255^2 * 128 = 8,323,200 < 2^23, so key = dot * 256 + r fits an int32
+//   (at most 2,130,739,455 < 2^31) and a row's keys order as its dots, with
+//   r breaking ties: within a column tile r = 254 - pos for the position
+//   pos in [0, 128) of the column in the tile (the earlier column has the
+//   larger key), and the running state carries r = 255, so it wins a tie
+//   against any later tile.  The top-2 update is then
+//   b' = max(b, k), s' = max(s, min(b, k)): no index register and no
+//   compare-and-select per dot.  At a tile's end a best found in that tile
+//   records its column (c0 + 254 - r) and is re-marked r = 255.
+// * Masking in the key.  key = acc * 256 + cst[column], where the
+//   producer writes cst = 254 - pos for a valid column and
+//   INT32_MIN + 254 - pos for a masked one (or one past N, whose
+//   descriptor the copy fills with zeros): a masked entry's key is below
+//   -16.7 M, every valid key is at least 127, so masked entries lose to
+//   every valid one and decode to -1e9, index 0, with no per-dot select.
+//   A masked row is written as -1e9, -1e9, 0 at the end.
+// * No column state.  The column direction is the row direction of the
+//   swapped pair (d2 against d1), run by other CTAs of the same launch;
+//   a column's state then lives in registers across all of its tiles like
+//   a row's, and nothing is reduced across CTAs per tile: no (3, B,
+//   N1 / 128, N2) partial table.
+// * The contraction is wgmma.mma_async m64n128k32 .s32.u8.u8 from shared
+//   memory: a CTA is two consumer warpgroups of 64 rows each and one
+//   producer warp.  Both descriptor tables are row-major (N, 128) bytes,
+//   K-major, and a row is exactly one 128-byte swizzle span, so the
+//   producer's TMA copies 128-row tiles as they are (128-byte swizzle,
+//   rows past N zero-filled) into a ring of four stages under full and
+//   empty mbarriers; the rows' block is copied once.  At 92 registers two
+//   CTAs share an SM, so four warpgroups take turns: one's products run on
+//   the tensor cores while the others fold theirs into their row states.
+// * A CTA walks every column tile of its rows, so a launch of few pairs
+//   runs few CTAs (one pair at 8192 x 8192: 128 on 132 SMs).  Splitting
+//   the tiles over more CTAs, with the partials merged by a second
+//   kernel, was measured on an H100 and dropped: it cut the device time
+//   of some small launches (2 x 1000 x 8192: 0.054 to 0.025 ms) and added
+//   to others (one pair: 0.051 to 0.053 ms), but every such call is bound
+//   by its host path (0.07-0.2 ms), where the difference does not show.
+// * Each row's result is written by one thread, from a merge of its four
+//   lanes that takes the larger value, the smaller index on a tie: no
+//   atomics, bit-identical from run to run.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;        // rows per CTA
-constexpr int BN = 128;        // candidate columns per tile
-constexpr int DIM = 128;       // descriptor bytes
-constexpr int LD = DIM + 16;   // shared-memory row stride: no bank conflicts
-constexpr int THREADS = 256;   // 8 warps: 4 along rows x 2 along columns
+constexpr int BM = 128;          // rows per CTA: two warpgroups of 64
+constexpr int BN = 128;          // candidate columns per tile
+constexpr int DIM = 128;         // descriptor bytes
+constexpr int STAGES = 4;        // column tiles in flight
+constexpr int CONSUMERS = 256;   // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int TILE_BYTES = BN * DIM;     // a tile, and the rows' block
 constexpr int NEG = -1000000000;  // the plain version's masked dot, -1e9
+constexpr int CARRIED = 255;      // r of a best carried from a past tile
+// A barrier wait this long traps (mbar_wait): two minutes.
+constexpr uint64_t WAIT_LIMIT_NS = 120ull * 1000000000ull;
 
-constexpr int SMEM_A = BM * LD;
-constexpr int SMEM_B = 2 * BN * LD;
-constexpr int SMEM_BYTES = SMEM_A + SMEM_B + 2 * BN * 4 + 3 * 4 * BN * 4;
+// Shared memory from a 1024-byte aligned base (the swizzle's period).
+constexpr int OFF_A = 0;
+constexpr int OFF_B = OFF_A + TILE_BYTES;
+constexpr int OFF_CST = OFF_B + STAGES * TILE_BYTES;
+constexpr int OFF_BAR = OFF_CST + STAGES * BN * 4;
+constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;
 
-// Adds value v at index j to a running top-2; indices arrive in
-// increasing order, so the strict > keeps the first occurrence.
-__device__ __forceinline__ void push(int& b, int& s, int& i, int v, int j) {
-  const bool gt = v > b;
-  s = gt ? b : max(s, v);
-  i = gt ? j : i;
-  b = gt ? v : b;
-}
+// One direction of the search: the rows' top-2 over the columns.
+struct Side {
+  const uint8_t* vrows;  // (nb, nrows) 0/1
+  const uint8_t* vcols;  // (nb, ncols) 0/1
+  int nrows, ncols;
+  float* best;           // (nb, nrows)
+  float* second;
+  int* idx;
+};
 
 // Merges another top-2 of a disjoint index range: the larger best wins,
 // the smaller index on a tie.  Commutative and associative.
@@ -78,326 +120,371 @@ __device__ __forceinline__ void merge_lanes(int& b, int& s, int& i,
   merge(b, s, i, ob, os, oi);
 }
 
-__device__ __forceinline__ void mma_u8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + 128) of an (n, 128) byte matrix into shared memory with
-// row stride LD; rows past n are zero.
-__device__ __forceinline__ void load_tile(uint8_t* dst, const uint8_t* src,
-                                          int r0, int n, int tid) {
-#pragma unroll
-  for (int k = 0; k < BM * DIM / 16 / THREADS; ++k) {
-    const int q = tid + k * THREADS;
-    const int row = q >> 3, col = (q & 7) * 16;
-    uint8_t* d = dst + row * LD + col;
-    if (r0 + row < n) {
-      cp_async16(d, src + static_cast<size_t>(r0 + row) * DIM + col);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
+// Waits for the phase of parity ``parity`` to complete.  A wait of more
+// than WAIT_LIMIT_NS on the global timer, which runs on while the context
+// is switched out (time-slicing, MPS, a debugger), can only be a lost
+// arrival: it traps, so a fault ends the launch with an error instead of
+// hanging the card.  A trap is a sticky error: the process's CUDA context
+// is lost with it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t start = global_ns();
+  while (!mbar_try_wait(a, parity)) {
+    if (global_ns() - start > WAIT_LIMIT_NS) __trap();
   }
 }
 
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// A 128-row box of an (nb, n, 128) byte tensor, rows [row, row + 128) of
+// pair ``pair``, into shared memory with the 128-byte swizzle; rows past n
+// are zero.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int row, int pair, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(pair),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
-// grid (ceil(n1 / BM), nb), THREADS threads, SMEM_BYTES dynamic shared
-// memory.  Writes the row direction to bd12/sd12/idx12 (nb, n1) and, when
-// BIDIR, the column partials to part (3, nb, gridDim.x, n2).
-template <bool BIDIR>
-__global__ void __launch_bounds__(THREADS)
-    match_top2_kernel(const uint8_t* __restrict__ d1,
-                      const uint8_t* __restrict__ d2,
-                      const uint8_t* __restrict__ v1,
-                      const uint8_t* __restrict__ v2, int n1, int n2,
-                      float* __restrict__ bd12, float* __restrict__ sd12,
-                      int* __restrict__ idx12, int* __restrict__ part) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* sa = smem;
-  uint8_t* sb = smem + SMEM_A;
-  int* svalid = reinterpret_cast<int*>(smem + SMEM_A + SMEM_B);  // 2 x BN
-  int* sred = svalid + 2 * BN;  // 3 x 4 x BN
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int rb = blockIdx.x, pair = blockIdx.y, nrb = gridDim.x;
-  const int r0 = rb * BM;
-  const uint8_t* A = d1 + static_cast<size_t>(pair) * n1 * DIM;
-  const uint8_t* B = d2 + static_cast<size_t>(pair) * n2 * DIM;
-  const uint8_t* V1 = v1 + static_cast<size_t>(pair) * n1;
-  const uint8_t* V2 = v2 + static_cast<size_t>(pair) * n2;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 
-  load_tile(sa, A, r0, n1, tid);
-  load_tile(sb, B, 0, n2, tid);
-  cp_async_commit();
-  if (tid < BN) svalid[tid] = (tid < n2 && V2[tid]) ? 1 : 0;
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
-  // This thread's four rows, in increasing order: q = mi * 2 + h is row
-  // wm * 32 + mi * 16 + h * 8 + g of the block.
-  bool rvalid[4];
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from reading an accumulator before the wait that
+// completes it.
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int r = r0 + wm * 32 + q * 8 + g;
-    rvalid[q] = r < n1 && V1[r];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128, int32) = A (64 x 32 bytes) . B (128 x 32 bytes)^T (+ d
+// when accumulate), both operands in shared memory.
+__device__ __forceinline__ void wgmma128(int (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The products of one tile: d = A . B^T over the depth of 128, four
+// k-steps of 32 bytes, as one commit group.
+__device__ __forceinline__ void issue_tile(int (&d)[64], uint32_t a,
+                                           uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma128(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32), kk);
   }
-  int rbest[4], rsec[4], ridx[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    rbest[q] = NEG;
-    rsec[q] = NEG;
-    ridx[q] = 0;
-  }
+  wgmma_commit();
+}
 
-  cp_async_wait_all();
-  __syncthreads();
-
-  // A fragments of the warp's 32 rows for the whole depth of 128.
-  uint32_t af[2][4][4];
+// Folds a tile's products into the thread's two row states.  Register
+// j * 4 + rr * 2 + c is row rr * 8 + g of the warp's 16 and column
+// j * 8 + t * 2 + c of the tile.
+__device__ __forceinline__ void fold(const int (&d)[64], const int* cst,
+                                     int t, int (&best)[2], int (&sec)[2]) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int j = 0; j < 16; ++j) {
+    const int2 cv = *reinterpret_cast<const int2*>(cst + j * 8 + t * 2);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint8_t* p = sa + (wm * 32 + mi * 16 + g) * LD + kk * 32 + t * 4;
-      af[mi][kk][0] = lds32(p);
-      af[mi][kk][1] = lds32(p + 8 * LD);
-      af[mi][kk][2] = lds32(p + 16);
-      af[mi][kk][3] = lds32(p + 8 * LD + 16);
-    }
-  }
-
-  const int ntiles = (n2 + BN - 1) / BN;
-  for (int jt = 0; jt < ntiles; ++jt) {
-    const int buf = jt & 1;
-    const int c0 = jt * BN;
-    if (jt + 1 < ntiles) {
-      load_tile(sb + (buf ^ 1) * BN * LD, B, c0 + BN, n2, tid);
-      if (tid < BN) {
-        const int c = c0 + BN + tid;
-        svalid[(buf ^ 1) * BN + tid] = (c < n2 && V2[c]) ? 1 : 0;
-      }
-    }
-    cp_async_commit();
-
-    int acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-    const uint8_t* tb = sb + buf * BN * LD;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint8_t* p = tb + (wn * 64 + ni * 8 + g) * LD + kk * 32 + t * 4;
-        const uint32_t bf[2] = {lds32(p), lds32(p + 16)};
-        mma_u8(acc[0][ni], af[0][kk], bf);
-        mma_u8(acc[1][ni], af[1][kk], bf);
-      }
-    }
-
-    // Mask: accumulator e of m-tile mi is row q = mi * 2 + (e >> 1) and
-    // column wn * 64 + ni * 8 + t * 2 + (e & 1) of the tile.
-    const int* vm = svalid + buf * BN;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool cv = vm[wn * 64 + ni * 8 + t * 2 + (e & 1)] != 0;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if (!(cv && rvalid[mi * 2 + (e >> 1)])) acc[mi][ni][e] = NEG;
-        }
-      }
-    }
-
-    // Row direction, columns in increasing order.
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
+    for (int rr = 0; rr < 2; ++rr) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = c0 + wn * 64 + ni * 8 + t * 2 + c;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          push(rbest[q], rsec[q], ridx[q], acc[q >> 1][ni][(q & 1) * 2 + c],
-               col);
-        }
+        const int k = d[j * 4 + rr * 2 + c] * 256 + (c ? cv.y : cv.x);
+        sec[rr] = max(sec[rr], min(best[rr], k));
+        best[rr] = max(best[rr], k);
       }
     }
-
-    if (BIDIR) {
-      // Column direction: the thread's four rows, then the warp's 32
-      // (lanes differing in g), then the four row warps in shared memory.
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          int cb = NEG, cs = NEG, ci = 0;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            push(cb, cs, ci, acc[q >> 1][ni][(q & 1) * 2 + c],
-                 r0 + wm * 32 + q * 8 + g);
-          }
-          merge_lanes(cb, cs, ci, 4);
-          merge_lanes(cb, cs, ci, 8);
-          merge_lanes(cb, cs, ci, 16);
-          if (g == 0) {
-            const int col = wn * 64 + ni * 8 + t * 2 + c;
-            sred[(0 * 4 + wm) * BN + col] = cb;
-            sred[(1 * 4 + wm) * BN + col] = cs;
-            sred[(2 * 4 + wm) * BN + col] = ci;
-          }
-        }
-      }
-      __syncthreads();
-      if (tid < BN && c0 + tid < n2) {
-        int cb = sred[tid], cs = sred[4 * BN + tid], ci = sred[8 * BN + tid];
-#pragma unroll
-        for (int w = 1; w < 4; ++w) {
-          merge(cb, cs, ci, sred[w * BN + tid], sred[(4 + w) * BN + tid],
-                sred[(8 + w) * BN + tid]);
-        }
-        const size_t plane = static_cast<size_t>(gridDim.y) * nrb * n2;
-        const size_t o =
-            (static_cast<size_t>(pair) * nrb + rb) * n2 + c0 + tid;
-        part[o] = cb;
-        part[plane + o] = cs;
-        part[2 * plane + o] = ci;
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
   }
+}
 
-  // Row direction: the four lanes of a group, then the two column warps.
+// At a tile's end (columns from c0), a best found in the tile records its
+// column and is carried.
+__device__ __forceinline__ void carry(int (&best)[2], int (&bidx)[2],
+                                      int c0) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    merge_lanes(rbest[q], rsec[q], ridx[q], 1);
-    merge_lanes(rbest[q], rsec[q], ridx[q], 2);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = best[rr] & CARRIED;
+    bidx[rr] = r != CARRIED ? c0 + 254 - r : bidx[rr];
+    best[rr] |= CARRIED;
   }
-  if (t == 0) {
+}
+
+// grid (blocks of side 0 + blocks of side 1, nb), THREADS threads,
+// SMEM_BYTES dynamic shared memory; a side has ceil(nrows / BM) blocks.
+// m1 and m2 map d1 and d2.  Writes each side's rows.  Two CTAs an SM.
+__global__ void __launch_bounds__(THREADS, 2)
+    match_top2_kernel(const __grid_constant__ CUtensorMap m1,
+                      const __grid_constant__ CUtensorMap m2, Side s0,
+                      Side s1, int blocks0) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem + OFF_A;
+  uint8_t* sb = smem + OFF_B;
+  int* scst = reinterpret_cast<int*>(smem + OFF_CST);  // STAGES x BN
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* bar_a = empty + STAGES;
+
+  const bool swapped = static_cast<int>(blockIdx.x) >= blocks0;
+  const Side S = swapped ? s1 : s0;
+  const CUtensorMap* rmap = swapped ? &m2 : &m1;
+  const CUtensorMap* cmap = swapped ? &m1 : &m2;
+  const int r0 = (swapped ? blockIdx.x - blocks0 : blockIdx.x) * BM;
+  const int pair = blockIdx.y;
+  const int n = (S.ncols + BN - 1) / BN;  // column tiles, >= 1
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int row = wm * 32 + q * 8 + g;
-      sred[(0 * 2 + wn) * BM + row] = rbest[q];
-      sred[(1 * 2 + wn) * BM + row] = rsec[q];
-      sred[(2 * 2 + wn) * BM + row] = ridx[q];
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CONSUMERS);
     }
+    mbar_init(bar_a, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid < BM && r0 + tid < n1) {
-    int b = sred[tid], s = sred[2 * BM + tid], i = sred[4 * BM + tid];
-    merge(b, s, i, sred[BM + tid], sred[3 * BM + tid], sred[5 * BM + tid]);
-    const size_t o = static_cast<size_t>(pair) * n1 + r0 + tid;
-    bd12[o] = static_cast<float>(b);
-    sd12[o] = static_cast<float>(s);
-    idx12[o] = i;
+
+  if (tid >= CONSUMERS) {
+    // Producer warp: the rows' block once, then the column tiles through
+    // the ring, each with its columns' key constants.
+    const int lane = tid - CONSUMERS;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_a, TILE_BYTES);
+      tma_load(sa, rmap, r0, pair, bar_a);
+    }
+    const uint8_t* VC = S.vcols + static_cast<size_t>(pair) * S.ncols;
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[stage], ((i / STAGES) & 1) ^ 1);
+      const int c0 = i * BN;
+#pragma unroll
+      for (int k = lane; k < BN; k += 32) {
+        const int c = c0 + k;
+        scst[stage * BN + k] =
+            ((c < S.ncols && VC[c]) ? 0 : INT32_MIN) + (254 - k);
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], TILE_BYTES);
+        tma_load(sb + stage * TILE_BYTES, cmap, c0, pair, &full[stage]);
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes rows wg * 64 + [0, 64) of the block; a
+  // thread holds rows ww * 16 + g and ww * 16 + g + 8 of those.
+  const int wg = tid >> 7, ww = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t a_addr = smem_u32(sa) + wg * (64 * DIM);
+  const uint32_t b_addr = smem_u32(sb);
+  int best[2] = {INT32_MIN, INT32_MIN}, sec[2] = {INT32_MIN, INT32_MIN};
+  int bidx[2] = {0, 0};
+
+  int acc[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) acc[q] = 0;
+  mbar_wait(bar_a, 0);
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % STAGES;
+    mbar_wait(&full[stage], (i / STAGES) & 1);
+    issue_tile(acc, a_addr, b_addr + stage * TILE_BYTES);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fold(acc, scst + stage * BN, t, best, sec);
+    carry(best, bidx, i * BN);
+    mbar_arrive(&empty[stage]);
+  }
+
+  // Decode (a key below 0 is a masked entry, -1e9 at index 0), then merge
+  // the four lanes that share a row.
+  const uint8_t* VR = S.vrows + static_cast<size_t>(pair) * S.nrows;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    int b = best[rr] >= 0 ? best[rr] >> 8 : NEG;
+    int s = sec[rr] >= 0 ? sec[rr] >> 8 : NEG;
+    int i = best[rr] >= 0 ? bidx[rr] : 0;
+    merge_lanes(b, s, i, 1);
+    merge_lanes(b, s, i, 2);
+    const int row = r0 + wg * 64 + ww * 16 + rr * 8 + g;
+    if (t != 0 || row >= S.nrows) continue;
+    if (!VR[row]) {
+      b = NEG;
+      s = NEG;
+      i = 0;
+    }
+    const size_t o = static_cast<size_t>(pair) * S.nrows + row;
+    S.best[o] = static_cast<float>(b);
+    S.second[o] = static_cast<float>(s);
+    S.idx[o] = i;
   }
 }
 
-// One thread per (pair, column): merges the column partials of the
-// row blocks in order.
-__global__ void merge_columns_kernel(const int* __restrict__ part, int nb,
-                                     int nrb, int n2,
-                                     float* __restrict__ bd21,
-                                     float* __restrict__ sd21,
-                                     int* __restrict__ idx21) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (k >= static_cast<long long>(nb) * n2) return;
-  const int pair = static_cast<int>(k / n2), col = static_cast<int>(k % n2);
-  const size_t plane = static_cast<size_t>(nb) * nrb * n2;
-  int b = NEG, s = NEG, i = 0;
-  for (int r = 0; r < nrb; ++r) {
-    const size_t o = (static_cast<size_t>(pair) * nrb + r) * n2 + col;
-    merge(b, s, i, part[o], part[plane + o], part[2 * plane + o]);
-  }
-  bd21[k] = static_cast<float>(b);
-  sd21[k] = static_cast<float>(s);
-  idx21[k] = i;
+Side make_side(const void* vrows, const void* vcols, int nrows, int ncols,
+               void* best, void* second, void* idx) {
+  Side s;
+  s.vrows = static_cast<const uint8_t*>(vrows);
+  s.vcols = static_cast<const uint8_t*>(vcols);
+  s.nrows = nrows;
+  s.ncols = ncols;
+  s.best = static_cast<float*>(best);
+  s.second = static_cast<float*>(second);
+  s.idx = static_cast<int*>(idx);
+  return s;
 }
 
-template <bool BIDIR>
-cudaError_t launch_main(const uint8_t* d1, const uint8_t* d2,
-                        const uint8_t* v1, const uint8_t* v2, int nb, int n1,
-                        int n2, float* bd12, float* sd12, int* idx12,
-                        int* part, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        match_top2_kernel<BIDIR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+// The TMA map of an (nb, n, 128) uint8 tensor in 128-row boxes with the
+// 128-byte swizzle; rows past n read as zero.
+cudaError_t encode_map(CUtensorMap* map, const void* base, int nb, int n) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
     if (err != cudaSuccess) return err;
-    configured = true;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const dim3 grid((n1 + BM - 1) / BM, nb);
-  match_top2_kernel<BIDIR><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      d1, d2, v1, v2, n1, n2, bd12, sd12, idx12, part);
-  return cudaGetLastError();
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(DIM),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(nb)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(DIM),
+                                 static_cast<cuuint64_t>(n) * DIM};
+  const cuuint32_t box[3] = {DIM, BN, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t configure() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      match_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
 }  // namespace
 
 // d1 (nb, n1, 128) and d2 (nb, n2, 128) uint8, v1 (nb, n1) and
-// v2 (nb, n2) uint8 0/1, all contiguous and 16-byte aligned.  Outputs
-// (nb, n1) bd12, sd12 float32 and idx12 int32.  With bd21 non-null, also
-// the column direction (nb, n2) bd21, sd21, idx21, through the int32
-// scratch part of 3 * nb * ceil(n1 / 128) * n2 elements; with bd21 null,
-// the row direction only (part and sd21, idx21 unused).
+// v2 (nb, n2) uint8 0/1, all contiguous and 16-byte aligned.  Writes the
+// row direction (nb, n1) to bd12, sd12 float32 and idx12 int32; with bd21
+// non-null, also the column direction (nb, n2) to bd21, sd21, idx21.
 extern "C" int ppsfm_match_top2(const void* d1, const void* d2,
                                 const void* v1, const void* v2, int nb,
                                 int n1, int n2, void* bd12, void* sd12,
                                 void* idx12, void* bd21, void* sd21,
-                                void* idx21, void* part, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const uint8_t*>(d1);
-  const auto* b = static_cast<const uint8_t*>(d2);
-  const auto* va = static_cast<const uint8_t*>(v1);
-  const auto* vb = static_cast<const uint8_t*>(v2);
-  if (nb <= 0 || n1 <= 0 || n2 <= 0) return cudaErrorInvalidValue;
-  if (bd21 == nullptr) {
-    return launch_main<false>(a, b, va, vb, nb, n1, n2,
-                              static_cast<float*>(bd12),
-                              static_cast<float*>(sd12),
-                              static_cast<int*>(idx12), nullptr, s);
+                                void* idx21, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nb <= 0 || nb > 65535 || n1 <= 0 || n2 <= 0) {
+    return cudaErrorInvalidValue;
   }
-  cudaError_t err = launch_main<true>(
-      a, b, va, vb, nb, n1, n2, static_cast<float*>(bd12),
-      static_cast<float*>(sd12), static_cast<int*>(idx12),
-      static_cast<int*>(part), s);
+  cudaError_t err = configure();
   if (err != cudaSuccess) return err;
-  const int nrb = (n1 + BM - 1) / BM;
-  const long long total = static_cast<long long>(nb) * n2;
-  const int threads = 256;
-  merge_columns_kernel<<<static_cast<unsigned>((total + threads - 1) /
-                                               threads),
-                         threads, 0, s>>>(static_cast<const int*>(part), nb,
-                                          nrb, n2, static_cast<float*>(bd21),
-                                          static_cast<float*>(sd21),
-                                          static_cast<int*>(idx21));
+  CUtensorMap m1, m2;
+  err = encode_map(&m1, d1, nb, n1);
+  if (err == cudaSuccess) err = encode_map(&m2, d2, nb, n2);
+  if (err != cudaSuccess) return err;
+  const Side s0 = make_side(v1, v2, n1, n2, bd12, sd12, idx12);
+  Side s1 = s0;
+  int blocks1 = 0;
+  if (bd21 != nullptr) {
+    s1 = make_side(v2, v1, n2, n1, bd21, sd21, idx21);
+    blocks1 = (n2 + BM - 1) / BM;
+  }
+  const int blocks0 = (n1 + BM - 1) / BM;
+  const dim3 grid(blocks0 + blocks1, nb);
+  match_top2_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(m1, m2, s0, s1,
+                                                       blocks0);
   return cudaGetLastError();
 }

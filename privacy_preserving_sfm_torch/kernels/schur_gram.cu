@@ -63,9 +63,11 @@
 // so S_corr is symmetric by construction; each camera's rows are written
 // whether it has observations or not.
 //
-// Bound.  Work is the sparse Gram, sum_p m_p^2 * 36 * 3 FMAs over the
-// upper camera pairs (m_p = the point's distinct cameras), with none of
-// the one-hot padding of the dense formulation.  Pass 1 reads lh and
+// Bound.  Work is the sparse Gram over the upper camera pairs, with none
+// of the one-hot padding of the dense formulation: for a point of m_p
+// distinct cameras, 108 FMAs for each of its m_p (m_p - 1) / 2 pairs
+// c1 < c2, 63 for the i1 <= i2 half of each diagonal block and 18 for
+// each rhs term.  Pass 1 reads lh and
 // writes Vc once each, in full lines (20 MB in float32 at the main
 // path's shape, a few microseconds of the card's bandwidth).  At the main
 // path's shape (K = 6, P = 20000, C = 100) the FMAs take a few

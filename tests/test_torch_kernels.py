@@ -9,6 +9,7 @@ makes the same checks at the main path's full sizes.
 import numpy as np
 import pytest
 import torch
+from torch_match_cases import CASES, case
 
 from privacy_preserving_sfm_torch.features import matching as tm
 from privacy_preserving_sfm_torch.features import matching_kernels as tmk
@@ -279,10 +280,9 @@ def _match_inputs(seed, b, n1, n2, device):
     return [torch.from_numpy(a).to(device) for a in (d1, d2, v1, v2)]
 
 
-@pytest.mark.parametrize("b,n1,n2", [(3, 384, 512), (2, 1000, 300),
-                                     (1, 1, 7), (3, 129, 2000)])
-def test_match_kernel_matches_plain(cuda, b, n1, n2):
-    d1, d2, v1, v2 = _match_inputs(n1 + n2, b, n1, n2, cuda)
+def _check_match_kernel(d1, d2, v1, v2):
+    """Both modes against the plain version, exactly; two runs equal; one
+    launch counted a call."""
     ref = tm._top2_both_batched_plain(d1, d2, v1, v2)
     n0 = kernels.LAUNCHES["match_top2"]
     got = tmk.top2_scores_bidir(d1, d2, v1, v2)
@@ -296,6 +296,21 @@ def test_match_kernel_matches_plain(cuda, b, n1, n2):
     ref_rows = tm._top2_both_batched_plain(d1, d2, ones, v2)[:3]
     for r, g in zip(ref_rows, tmk.top2_scores(d1, d2, v2)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("b,n1,n2", [(3, 384, 512), (2, 1000, 300),
+                                     (1, 1, 7), (3, 129, 2000)])
+def test_match_kernel_matches_plain(cuda, b, n1, n2):
+    _check_match_kernel(*_match_inputs(n1 + n2, b, n1, n2, cuda))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_match_kernel_edges_match_plain(cuda, name, transpose):
+    """The design's edges: the largest dots, ties across tile boundaries,
+    ragged and small N, masked rows and columns, B = 1."""
+    _check_match_kernel(*(torch.from_numpy(a).to(cuda)
+                          for a in case(name, transpose)))
 
 
 def test_match_kernel_takes_only_128_byte_descriptors(cuda):

@@ -13,12 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_match_cases import CASES, case
 
 from privacy_preserving_sfm_tpu.features import matching as jm
 from privacy_preserving_sfm_tpu.features import matching_kernels as jmk
 from privacy_preserving_sfm_tpu.models.database import Database as JDatabase
 from privacy_preserving_sfm_torch.features import matching as tm
 from privacy_preserving_sfm_torch.features import matching_kernels as tmk
+from privacy_preserving_sfm_torch.kernels import build as kernels
 from privacy_preserving_sfm_torch.models.database import Database as TDatabase
 from privacy_preserving_sfm_torch.utils.synthetic import sift_like
 
@@ -104,6 +106,139 @@ def test_top2_matches_reference_tpu_kernel_interpret(mode):
         np.testing.assert_array_equal(g[0][rows], r[0][rows])
         np.testing.assert_array_equal(g[1][two], r[1][two])
         assert rows.sum() > 0 and two.sum() > 0
+
+
+def _check_against_interpret(checks):
+    """Compares tables where the TPU kernel defines them: idx and best on
+    valid rows with a valid candidate, second where two are valid."""
+    compared = 0
+    for r, g, own, other in checks:
+        n_cand = other.sum(1, keepdims=True)
+        rows = own & (n_cand >= 1)
+        two = own & (n_cand >= 2)
+        r = [np.asarray(x) for x in r]
+        g = [x.numpy() for x in g]
+        np.testing.assert_array_equal(g[2][rows], r[2][rows])
+        np.testing.assert_array_equal(g[0][rows], r[0][rows])
+        np.testing.assert_array_equal(g[1][two], r[1][two])
+        compared += int(two.sum())
+    assert compared > 0
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("mode", ["bidir", "rows"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_top2_edges_match_reference(name, mode, transpose):
+    """The kernel design's edges (largest dots, ties across 128-wide
+    tiles, ragged and small N, masked rows and columns, B = 1), each way
+    round: the port against the TPU kernel in interpret mode and,
+    everywhere, against the reference's XLA branch."""
+    d1, d2, v1, v2 = case(name, transpose)
+    if mode == "rows":
+        v1 = np.ones_like(v1)
+        ref = jmk.top2_scores(jnp.asarray(d1), jnp.asarray(d2),
+                              jnp.asarray(v2), interpret=True)
+        got = tmk.top2_scores(*_torch(d1, d2, v2))
+        checks = [(ref, got, v1, v2)]
+    else:
+        ref = jmk.top2_scores_bidir(*map(jnp.asarray, (d1, d2, v1, v2)),
+                                    interpret=True)
+        got = tmk.top2_scores_bidir(*_torch(d1, d2, v1, v2))
+        checks = [(ref[:3], got[:3], v1, v2), (ref[3:], got[3:], v2, v1)]
+    _check_against_interpret(checks)
+    xla = jm._top2_both_batched(*map(jnp.asarray, (d1, d2, v1, v2)))
+    for r, g in zip(xla, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+# A plain-Python model of match_top2.cu's packed keys: key = (dot + start)
+# * 256 + r, start 0 for a valid column and MASKED for a masked one or one
+# past N, r = 254 - (position in the 128-wide tile), and r = CARRIED for a
+# best carried from an earlier tile.
+MASKED = -(1 << 23)
+CARRIED = 255
+NEG_I = -1000000000
+
+
+def _merge(a, o):
+    """The kernel's merge of two (best, second, idx) tops of disjoint
+    index ranges: the larger best wins, the smaller index on a tie."""
+    b, s, i = a
+    ob, os_, oi = o
+    other = (ob > b) | ((ob == b) & (oi < i))
+    return (np.where(other, ob, b),
+            np.where(other, np.maximum(b, os_), np.maximum(s, ob)),
+            np.where(other, oi, i))
+
+
+def _packed_rows(d1, d2, v1, v2, rng):
+    """The rows' top-2 as match_top2.cu computes it: per thread of the
+    four that share a row (lane ``t`` holds columns ``j * 8 + t * 2 + c``
+    of a tile), the packed-key update over the thread's columns of each
+    tile in an arbitrary order and the carry at each tile's end; then the
+    threads' merge, in a random order."""
+    cols = kernels.MATCH_COLS
+    b, n1, _ = d1.shape
+    n2 = d2.shape[1]
+    ntiles = -(-n2 // cols)
+    width = ntiles * cols
+    dots = np.zeros((b, n1, width), np.int64)
+    dots[:, :, :n2] = np.einsum("bik,bjk->bij", d1.astype(np.int64),
+                                d2.astype(np.int64))
+    start = np.full((b, width), MASKED, np.int64)
+    start[:, :n2] = np.where(v2, 0, MASKED)
+    pos = np.arange(width) % cols
+    keys = (dots + start[:, None, :]) * 256 + (254 - pos)
+    assert keys.max() < 2 ** 31 and keys.min() >= -2 ** 31
+    keys = keys.astype(np.int32)
+    owner = (pos[:cols] % 8) // 2
+    threads = []
+    for o in range(4):
+        best = np.full((b, n1), np.iinfo(np.int32).min, np.int32)
+        sec = best.copy()
+        idx = np.zeros((b, n1), np.int32)
+        for jt in range(ntiles):
+            for j in rng.permutation(np.flatnonzero(owner == o)):
+                k = keys[:, :, jt * cols + j]
+                sec = np.maximum(sec, np.minimum(best, k))
+                best = np.maximum(best, k)
+            r = best & CARRIED
+            idx = np.where(r != CARRIED, jt * cols + 254 - r, idx)
+            best = best | CARRIED
+        threads.append((np.where(best >= 0, best >> 8, NEG_I),
+                        np.where(sec >= 0, sec >> 8, NEG_I),
+                        np.where(best >= 0, idx, 0)))
+    order = rng.permutation(4)
+    top = threads[order[0]]
+    for o in order[1:]:
+        top = _merge(top, threads[o])
+    top = tuple(np.where(v1, x, fill)
+                for x, fill in zip(top, (NEG_I, NEG_I, 0)))
+    return (top[0].astype(np.float32), top[1].astype(np.float32),
+            top[2].astype(np.int32))
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_packed_key_model_matches_plain(name, seed):
+    """The packed keys, the masked sentinel and the carry across tiles
+    give the plain version's six tables exactly, whatever the order in
+    which a thread walks its columns and the four threads of a row
+    merge (drawn from ``seed``)."""
+    d1, d2, v1, v2 = case(name)
+    rng = np.random.default_rng(seed)
+    got = (_packed_rows(d1, d2, v1, v2, rng)
+           + _packed_rows(d2, d1, v2, v1, rng))
+    ref = tm._top2_both_batched_plain(*_torch(d1, d2, v1, v2))
+    for name_, r, g in zip(("bd12", "sd12", "idx12", "bd21", "sd21",
+                            "idx21"), ref, got):
+        np.testing.assert_array_equal(g, r.numpy(), err_msg=name_)
+    if name == "all_top":  # the top of the key range: 255^2 * 128
+        assert got[0][0, 3] == 255 ** 2 * 128 and got[2][0, 3] == 10
+        assert (got[2][1] == 0).all() and (got[1][1] == got[0][1]).all()
+    if name == "tile_ties":  # the earlier side of each tile boundary wins
+        assert (got[2][0, 5], got[2][0, 6]) == (127, 255)
+        assert (got[5][0, 50], got[5][0, 60]) == (127, 255)
 
 
 @pytest.mark.parametrize("cross_check", [True, False])
