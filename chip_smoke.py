@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
-each against its plain PyTorch version on the card, then drives the
-port's paths through its CLI: ``bundle_adjuster`` on a seeded synthetic
-model at the line-BA benchmark's size (100 cameras, 20,000 points,
-120,000 observations), on the SoA solver (phase ``main``) and on the
-dense-block explicit-Schur solver (``PPSFM_BA_PATH=dense``, phase
-``dense_explicit``); ``bundle_adjuster`` with no override on a 1,280-camera
+each against its plain PyTorch version on the card (the PCG on both of
+its paths, cluster and grid, after measuring one grid sync and one
+cluster barrier), then drives the port's paths through its CLI:
+``bundle_adjuster`` on a seeded synthetic model at the line-BA
+benchmark's size (100 cameras, 20,000 points, 120,000 observations), on
+the SoA solver (phase ``main``) and on the dense-block explicit-Schur
+solver (``PPSFM_BA_PATH=dense``, phase ``dense_explicit``), each solved
+twice with bit-equal output models and LM iteration counts required;
+``bundle_adjuster`` with no override on a 1,280-camera
 global BA (100,000 points, 600,000 observations), which the mapper sends
 to the dense-block implicit solver (phase ``dense_implicit``); and
 ``exhaustive_matcher`` on a seeded synthetic database of 64 images x 8,192
@@ -52,7 +55,14 @@ GRAM_AOS_SHAPES = [(6, 20000, 100), (16, 20000, 100), (8, 16384, 256)]
 RAGGED = (32, 20000, 100)
 # The Gram's kernels by name (schur_gram.cu: compaction, strips, reduction).
 GRAM_KERNEL = r"gram_(compact|strip|reduce)_kernel"
-PCG_CAMS = [100, 320, 640]
+PCG_KERNEL = r"pcg_(cluster|grid)_kernel"
+# C for the PCG checks: a local BA (16), BA-100 (reported in the kernels
+# line), the Gram's regimes and the explicit ceiling (n = 6,144); at the
+# C of PCG_BOTH, both of the kernel's paths are checked and timed (the
+# cluster path where it fits), to place the crossover between them.
+PCG_CAMS = [16, 100, 320, 640, 1024]
+PCG_BOTH = [16, 50, 100, 109, 155]
+PCG_MAIN = 100
 CG_ITERS = 30
 MAIN = dict(num_images=100, num_points=20000, obs_per_point=6,
             meas_noise=2e-4)
@@ -85,6 +95,7 @@ PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12    # outside the tensor cores
 PEAK_F64 = 67e12    # on the tensor cores (34e12 outside them)
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 MATCHER = dict(num_images=64, num_features=8192)
 # Thresholds of the matcher phase against the generator's truth, set from
 # the first run on an H100 (precision 1.00000, recall 0.97531).
@@ -234,8 +245,8 @@ def times_text(ms, plan_ms, call_ms, plain_ms, plan, bnd):
 
 
 def phase_gram(device, card, reps=5):
-    """Gram kernel vs gram_soa_plain; returns the main-path shape's stats
-    and the float64 Grams (for the PCG systems)."""
+    """Gram kernel vs gram_soa_plain; returns the main-path shape's
+    stats."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
@@ -243,7 +254,6 @@ def phase_gram(device, card, reps=5):
     def plan_of(cam, C):
         return schur_pcg.gram_plan(cam, C, "soa")
 
-    grams = {}
     main_stats = None
     for K, P, C in GRAM_SHAPES:
         lh, gl, cam = gram_inputs(K, P, C, torch.float64, device, seed=C + K)
@@ -279,9 +289,8 @@ def phase_gram(device, card, reps=5):
             if (K, P, C) == GRAM_SHAPES[0] and dtype == torch.float32:
                 main_stats = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms,
                                   **bnd)
-        grams[C] = S_ref
         del lh, gl, S_ref
-    return main_stats, grams
+    return main_stats
 
 
 def aos_inputs(K, P, C, dtype, device, seed, ragged=False):
@@ -438,62 +447,187 @@ def phase_gram_bf16(a, b, cam, C, card, reps, repeated=False):
     check(same, "SoA and AoS Gram kernels differ on the same blocks")
 
 
-def pcg_system(S_corr, C, device, seed):
-    """A damped SPD system from a Gram, padded with identity to
-    padded_dim(C), with its block-Jacobi preconditioner and a rhs."""
+def pcg_system(C, device, seed):
+    """A reduced camera system in the solvers' form, S = blockdiag(dHcc) -
+    S_corr, from the Gram G of BA-100-like random blocks (6 distinct
+    cameras a point, 20,000 points): S_corr = -G and damping blocks dHcc,
+    so S = G + diag(0.1 d + 1e-3 max d) is SPD; the block-Jacobi
+    preconditioner inv(dHcc - diag_blocks(S_corr)), as the solvers build
+    it, and a rhs.  float64."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
 
-    n = 6 * C
-    N = schur_pcg.padded_dim(C)
-    S = torch.eye(N, dtype=torch.float64, device=device)
-    d = torch.diagonal(S_corr)
-    S[:n, :n] = S_corr + torch.diag(0.1 * d + 1e-3 * float(d.max()))
-    blocks = schur_pcg.diag_blocks(S, C)
-    Minv = torch.eye(N, dtype=torch.float64, device=device)
-    inv = torch.linalg.inv(blocks)
-    ar = torch.arange(C, device=device)
-    Minv[:n, :n].view(C, 6, C, 6)[ar, :, ar, :] = inv
+    lh, gl, cam = gram_inputs(6, 20000, C, torch.float64, device, seed)
+    G, _ = schur_pcg.gram_soa(lh, gl, cam, C)
+    d = torch.diagonal(G).reshape(C, 6)
+    dHcc = torch.diag_embed(0.1 * d + 1e-3 * float(d.max()))
+    minv = torch.linalg.inv(dHcc + schur_pcg.diag_blocks(G, C))
     g = torch.Generator(device=device).manual_seed(seed)
-    rhs = torch.randn(N, generator=g, device=device, dtype=torch.float64)
-    return S, Minv, rhs
+    rhs = torch.randn(6 * C, generator=g, device=device, dtype=torch.float64)
+    return -G, dHcc, minv, rhs
 
 
-def phase_pcg(device, grams, reps=5):
+def pcg_bound(C, itemsize, iters=CG_ITERS):
+    """bound() of one PCG solve: S_corr, the two block arrays, rhs and x
+    once each; iters steps of 2n^2 + 34n flops (the S_corr product, the
+    two block products, the vector updates) and the first z."""
+    n = 6 * C
+    return bound(iters * (2.0 * n * n + 34 * n) + 14 * n,
+                 PEAK_F32 if itemsize == 4 else PEAK_F64,
+                 (n * n + 72 * C + 2 * n) * itemsize)
+
+
+def pcg_floor(C, itemsize, sync_ms, l2_rate, iters=CG_ITERS):
+    """A floor the kernel can reach, ms: two exchanges a step at their
+    measured cost, and S_corr read once a step and once more, from L2 where
+    it fits (at the measured L2 rate), else from HBM."""
+    nbytes = (6 * C) ** 2 * itemsize
+    rate = l2_rate if nbytes <= L2_BYTES else HBM_BYTES_S
+    return iters * 2 * sync_ms + (iters + 1) * nbytes / rate * 1e3
+
+
+def phase_sync(device, card, reps=2000):
+    """The cost of one grid sync (a cooperative grid of one CTA an SM, the
+    PCG's grid path) and of one cluster barrier (16 CTAs, the cluster
+    path), by CUDA events over reps of each in one launch less the same
+    launch with half the reps; the L2 read rate (a 32 MiB buffer held in
+    L2, read 20 times by one CTA an SM, against one read).  Returns (grid
+    ms, cluster ms, L2 B/s)."""
+    import torch
+
+    from privacy_preserving_sfm_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def per_sync(**kw):
+        full = cuda_ms(lambda: build.launch_sync_probe(device, reps, **kw), 5)
+        half = cuda_ms(lambda: build.launch_sync_probe(device, reps // 2,
+                                                       **kw), 5)
+        return (full - half) / (reps - reps // 2)
+
+    grid_ms = per_sync(blocks=sms)
+    cluster_ms = per_sync(cluster_ctas=16)
+    buf = torch.ones(8 * 2 ** 20, device=device)
+    out = torch.empty(sms * 512, device=device)
+
+    def reads(k):
+        return cuda_ms(lambda: build.launch_l2_probe(buf, k, out, sms), 5)
+
+    l2_rate = 19 * buf.numel() * 4 / ((reads(20) - reads(1)) / 1e3)
+    phase("sync", f"one grid sync ({sms} CTAs) {grid_ms * 1e3:.3f} us, one "
+          f"cluster barrier (16 CTAs) {cluster_ms * 1e3:.3f} us, L2 "
+          f"read rate {l2_rate / 1e12:.2f} TB/s (32 MiB) | {card}")
+    return grid_ms, cluster_ms, l2_rate
+
+
+def pcg_device_ms(fn, reps):
+    """Device ms of the PCG kernel a call of ``fn``, under torch.profiler:
+    its time on the card without the wrapper's host path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if re.search(PCG_KERNEL, e.key)) / reps / 1e3
+
+
+def pcg_steps(system, card, sync, reps=20):
+    """The main path's PCG (BA-100, float32) split by its device time at 0,
+    1 and CG_ITERS steps: the fixed cost of a launch, and the cost of a
+    step against its two measured exchanges."""
+    from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    times = {k: pcg_device_ms(lambda k=k: schur_pcg.pcg_schur(*system, k),
+                              reps) for k in (0, 1, CG_ITERS)}
+    step = (times[CG_ITERS] - times[1]) / (CG_ITERS - 1)
+    phase("pcg", f"C={PCG_MAIN} float32 auto path, device ms by steps: "
+          f"{times[0]:.4f} (0), {times[1]:.4f} (1), {times[CG_ITERS]:.4f} "
+          f"({CG_ITERS}); a step {step * 1e3:.3f} us against two cluster "
+          f"barriers {2 * sync[1] * 1e3:.3f} us | {card}")
+
+
+def pcg_path_run(system, path):
+    """The PCG on ``path`` ("cluster" may not fit): (x, path taken) or
+    (None, None)."""
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    before = dict(build.LAUNCHES)
+    try:
+        x = schur_pcg.pcg_schur(*system, CG_ITERS, path=path)
+    except RuntimeError:
+        if path != "cluster":
+            raise
+        return None, None
+    taken = [p for p in ("cluster", "grid")
+             if build.LAUNCHES[f"schur_pcg_{p}"] > before[f"schur_pcg_{p}"]]
+    return x, taken[0]
+
+
+def phase_pcg(device, card, sync, reps=5):
+    """The PCG kernel against its plain twin on both of its paths (the
+    cluster path where it fits), both dtypes; times against the bound and
+    the floor.  Returns the BA-100 stats of the kernels line."""
     import torch
 
     from privacy_preserving_sfm_torch.optim import schur_pcg
 
+    grid_ms, cluster_ms, l2_rate = sync
     main_stats = None
-    for C in PCG_CAMS:
-        S64, M64, r64 = pcg_system(grams[C], C, device, seed=C)
+    seen = set()
+    for C in sorted(set(PCG_CAMS) | set(PCG_BOTH)):
+        system64 = pcg_system(C, device, seed=C)
         for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-            S, M, r = S64.to(dtype), M64.to(dtype), r64.to(dtype)
-            x = schur_pcg.pcg(S, M, r, CG_ITERS)
-            x_ref = schur_pcg.pcg_plain(S, M, r, CG_ITERS)
-            torch.cuda.synchronize()
-            rel = float((x - x_ref).norm() / x_ref.norm())
-            err = float((x - x_ref).abs().max())
-            ms = cuda_ms(lambda: schur_pcg.pcg(S, M, r, CG_ITERS), reps)
+            system = [a.to(dtype) for a in system64]
+            x_ref = schur_pcg.pcg_schur_plain(*system, CG_ITERS)
             plain_ms = cuda_ms(
-                lambda: schur_pcg.pcg_plain(S, M, r, CG_ITERS), reps)
+                lambda: schur_pcg.pcg_schur_plain(*system, CG_ITERS), reps)
+            paths = ["auto"] + (["cluster", "grid"] if C in PCG_BOTH else [])
+            size = system[0].element_size()
+            bound_ms, bound_by = pcg_bound(C, size)
             name = str(dtype).replace("torch.", "")
-            # 2 * iters + 1 products by S or Minv, each read once.
-            N, size = S.shape[0], S.element_size()
-            bound_ms, bound_by = bound(
-                (2 * CG_ITERS + 1) * 2.0 * N * N,
-                PEAK_F32 if size == 4 else PEAK_F64,
-                (2 * N * N + 2 * N) * size)
-            phase("pcg", f"C={C} N={N} iters={CG_ITERS} {name}: "
-                  f"|dx|/|x|={rel:.3e} (tol {tol:.0e}) max|dx|={err:.3e} "
-                  f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), plain {plain_ms:.4f} ms")
-            check(rel <= tol, "PCG disagrees with pcg_plain")
-            if C == PCG_CAMS[0] and dtype == torch.float32:
-                main_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=None)
+            for path in paths:
+                x, taken = pcg_path_run(system, path)
+                if x is None:
+                    phase("pcg", f"C={C} n={6 * C} {name} path=cluster: "
+                          f"does not fit in a cluster's shared memory")
+                    continue
+                again = schur_pcg.pcg_schur(*system, CG_ITERS, path=path)
+                torch.cuda.synchronize()
+                rel = float((x - x_ref).norm() / x_ref.norm())
+                err = float((x - x_ref).abs().max())
+                stable = torch.equal(x, again)
+                def call():
+                    return schur_pcg.pcg_schur(*system, CG_ITERS, path=path)
+                ms = cuda_ms(call, reps)
+                dev_ms = pcg_device_ms(call, reps)
+                floor = pcg_floor(C, size, cluster_ms if taken == "cluster"
+                                  else grid_ms, l2_rate)
+                seen.add(taken)
+                phase("pcg", f"C={C} n={6 * C} iters={CG_ITERS} {name} "
+                      f"path={path}->{taken}: |dx|/|x|={rel:.3e} (tol "
+                      f"{tol:.0e}) max|dx|={err:.3e} bit-equal across runs="
+                      f"{stable} kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                      f"bound {bound_ms:.5f} ms ({bound_by}), floor "
+                      f"{floor:.4f} ms (measured exchanges), plain "
+                      f"{plain_ms:.4f} ms | {card}")
+                check(rel <= tol, "PCG disagrees with its plain twin")
+                check(stable, "PCG kernel not deterministic")
+                if C == PCG_MAIN and dtype == torch.float32 \
+                        and path == "auto":
+                    main_stats = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=None)
+                    pcg_steps(system, card, sync)
+        del system64
+        torch.cuda.empty_cache()
+    check(seen == {"cluster", "grid"}, f"PCG paths launched: {seen}")
     return main_stats
 
 
@@ -558,7 +692,7 @@ def phase_main_path(device, card, workdir):
           f"{summary.num_iterations}, {rate:.1f} obs*iter/s (ba_solve), "
           f"peak device memory {peak / 2**20:.1f} MiB, launches "
           f"{launches} | {card}")
-    for name in ("schur_gram", "schur_pcg"):
+    for name in ("schur_gram", "schur_pcg", "schur_pcg_cluster"):
         check(launches[name] > 0,
               f"kernel {name} was not launched by the main path")
 
@@ -582,16 +716,37 @@ def phase_main_path(device, card, workdir):
           f"iterations, {time.perf_counter() - t0:.3f} s): rel diff "
           f"{rel:.3e} (tol 1e-3); initial cost {summary.initial_cost!r}")
     check(rel <= 1e-3, "final cost disagrees with the float64 plain run")
-    gram_share("main", card, lambda: ppsfm.main([
+    again = gram_share("main", card, lambda: ppsfm.main([
         "bundle_adjuster", "--input_path", in_dir, "--output_path",
         os.path.join(workdir, "out_prof"), "--max_num_iterations",
         str(LM_ITERS), "--device", device.type, "--dtype", "float32"]))
+    check_same_solve("main", out_dir, os.path.join(workdir, "out_prof"),
+                     summary, again.last_summary)
     return launches
+
+
+def check_same_solve(name, out_a, out_b, summary_a, summary_b):
+    """Two solves of one model wrote byte-identical models (poses and
+    points as repr of the float32 results) in as many LM iterations."""
+    def text(out, name):
+        with open(os.path.join(out, name), "rb") as f:
+            return f.read()
+
+    same = all(text(out_a, f) == text(out_b, f)
+               for f in ("cameras.txt", "images.txt", "points3D.txt"))
+    phase(name, f"the same solve twice: LM iterations "
+          f"{summary_a.num_iterations} and {summary_b.num_iterations}, "
+          f"final cost {summary_a.final_cost!r} and "
+          f"{summary_b.final_cost!r}, output models bit-equal={same}")
+    check(summary_a.num_iterations == summary_b.num_iterations,
+          "two solves of one model took different LM iteration counts")
+    check(same, "two solves of one model gave different models")
 
 
 def gram_share(name, card, run):
     """``run()`` once more under torch.profiler: the Gram kernels' share
-    of kernel time (the kernels' self device time by name)."""
+    of kernel time (the kernels' self device time by name); returns what
+    ``run()`` returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -599,7 +754,7 @@ def gram_share(name, card, run):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events only (kernels, copies), less the device-timeline
@@ -614,7 +769,7 @@ def gram_share(name, card, run):
     grams = [e for e in events if re.search(GRAM_KERNEL, e.key)]
     gram = sum(e.self_device_time_total for e in grams)
     pcg = sum(e.self_device_time_total for e in events
-              if "schur_pcg_kernel" in e.key)
+              if re.search(PCG_KERNEL, e.key))
     each = ", ".join(
         f"{re.search(GRAM_KERNEL, e.key).group(0)} "
         f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in grams)
@@ -623,6 +778,7 @@ def gram_share(name, card, run):
           f"kernels {gram / 1e3:.3f} ms = {100 * gram / max(total, 1):.1f} % "
           f"of kernel time ({each}), PCG {pcg / 1e3:.3f} ms | {card}")
     check(gram > 0, "the profiled run launched no Gram kernel")
+    return out
 
 
 def check_output_model(out_dir, cfg, err_in, name):
@@ -760,10 +916,14 @@ def phase_dense_explicit(device, card, workdir):
     s64, dt = float64_cost(device, in_dir, ba_mod.BAOptions(
         max_iterations=LM_ITERS, schur_mode="explicit"))
     compare_float64("dense_explicit", mapper.last_summary, s64, dt)
-    gram_share("dense_explicit", card, lambda: run_bundle_adjuster(
-        device, in_dir, os.path.join(workdir, "out_dense_prof"),
-        {"PPSFM_BA_PATH": "dense", "PPSFM_SCHUR_MODE": None},
-        ["--max_num_iterations", str(LM_ITERS)]))
+    again, *_ = gram_share(
+        "dense_explicit", card, lambda: run_bundle_adjuster(
+            device, in_dir, os.path.join(workdir, "out_dense_prof"),
+            {"PPSFM_BA_PATH": "dense", "PPSFM_SCHUR_MODE": None},
+            ["--max_num_iterations", str(LM_ITERS)]))
+    check_same_solve("dense_explicit", os.path.join(workdir, "out_dense"),
+                     os.path.join(workdir, "out_dense_prof"),
+                     mapper.last_summary, again.last_summary)
     return launches
 
 
@@ -1114,9 +1274,9 @@ def main() -> int:
     try:
         card = phase_device()
         timed("build", phase_build)
-        gram_stats, grams = timed("gram", phase_gram, device, card)
-        pcg_stats = timed("pcg", phase_pcg, device, grams)
-        del grams
+        gram_stats = timed("gram", phase_gram, device, card)
+        sync = timed("sync", phase_sync, device, card)
+        pcg_stats = timed("pcg", phase_pcg, device, card, sync)
         torch.cuda.empty_cache()
         gram_aos_stats = timed("gram_aos", phase_gram_aos, device, card)
         with tempfile.TemporaryDirectory() as workdir:

@@ -92,9 +92,12 @@ def match_pair_list(db: Database, image_ids: Sequence[int],
                     chunk: int = 64, verbose: bool = False,
                     max_resident_images: Optional[int] = 256,
                     max_num_matches: int = 32768,
-                    device: torch.device = torch.device("cpu"),
+                    device: torch.device = torch.device("cuda"),
                     plain: bool = False) -> int:
     """Match and persist a pair list; returns #pairs with >= min matches.
+
+    Runs on ``device``, the card unless the caller asks for another, as
+    the CLI's ``--device`` does.
 
     Bounded device memory: when more than ``max_resident_images`` images
     are involved, images are partitioned into blocks and pairs are matched

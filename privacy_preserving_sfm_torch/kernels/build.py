@@ -34,13 +34,17 @@ SOURCES = ("schur_gram.cu", "schur_pcg.cu", "match_top2.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# Launch counts by kernel name; callers may reset them to 0.
+# Launch counts by kernel name; callers may reset them to 0.  A PCG launch
+# also counts on the path it took ("schur_pcg_cluster" or
+# "schur_pcg_grid"); "sync_probe" and "l2_probe" count the probes that
+# measure the PCG's floor.
 LAUNCHES: Dict[str, int] = {"schur_gram": 0, "schur_gram_aos": 0,
-                             "schur_pcg": 0, "match_top2": 0}
+                             "schur_pcg": 0, "schur_pcg_cluster": 0,
+                             "schur_pcg_grid": 0, "match_top2": 0,
+                             "sync_probe": 0, "l2_probe": 0}
 
-# Capacity of the PCG kernel's per-block partial sums (its grid is one
-# persistent block per resident slot, at most this many).
-PCG_MAX_BLOCKS = 4096
+# The PCG kernel's paths, by the code its launcher takes and reports.
+PCG_PATHS = {"auto": 0, "cluster": 1, "grid": 2}
 
 # Columns per tile of the match kernel (the packed keys' position range).
 MATCH_COLS = 128
@@ -126,8 +130,12 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [vp] * 12 + [ci] * 7 + [vp]
             fn.restype = ci
         fn = getattr(lib, f"ppsfm_schur_pcg_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 6 + [ci] * 4 + [vp, vp]
         fn.restype = ci
+    lib.ppsfm_sync_probe.argtypes = [ci, ci, ci, vp]
+    lib.ppsfm_sync_probe.restype = ci
+    lib.ppsfm_l2_probe.argtypes = [vp, ci, ci, vp, ci, vp]
+    lib.ppsfm_l2_probe.restype = ci
     lib.ppsfm_match_top2.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                      vp, vp, vp, vp, vp, vp, vp]
     lib.ppsfm_match_top2.restype = ci
@@ -200,18 +208,56 @@ def launch_schur_gram_aos(lh: torch.Tensor, gl: torch.Tensor,
                  offsets, Vc, ws, ws_rhs, S, rhs, cam_block, splits, bf16)
 
 
-def launch_schur_pcg(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,
-                     x: torch.Tensor, work: torch.Tensor, iters: int):
-    """Launch ``schur_pcg.cu``: x (N,) from S, Minv (N, N) and rhs (N,);
-    ``work`` holds 4 * N + 2 * PCG_MAX_BLOCKS scratch elements."""
-    N = S.shape[0]
-    fn = getattr(library(), f"ppsfm_schur_pcg_{_suffix(S)}")
-    with torch.cuda.device(S.device):
-        err = fn(S.data_ptr(), Minv.data_ptr(), rhs.data_ptr(),
-                 x.data_ptr(), work.data_ptr(), N, iters, PCG_MAX_BLOCKS,
-                 _stream(S))
+def launch_schur_pcg(S_corr: torch.Tensor, dHcc: torch.Tensor,
+                     minv: torch.Tensor, rhs: torch.Tensor, x: torch.Tensor,
+                     work: torch.Tensor, iters: int, blocks: int,
+                     path: str):
+    """Launch ``schur_pcg.cu``: x (6C,) from S_corr (6C, 6C), dHcc and minv
+    (C, 6, 6) and rhs (6C,), S_corr 16-byte aligned; ``work`` holds
+    2 * 6C + 2 * ``blocks`` scratch elements, ``blocks`` the grid path's
+    CTAs (one an SM).  ``path`` is a key of ``PCG_PATHS`` ("auto": the
+    cluster path where it fits, else the grid path); the launch counts on
+    the path taken.  The caller has checked shapes and types."""
+    C = dHcc.shape[0]
+    fn = getattr(library(), f"ppsfm_schur_pcg_{_suffix(S_corr)}")
+    taken = ctypes.c_int(0)
+    with torch.cuda.device(S_corr.device):
+        err = fn(S_corr.data_ptr(), dHcc.data_ptr(), minv.data_ptr(),
+                 rhs.data_ptr(), x.data_ptr(), work.data_ptr(), C, iters,
+                 blocks, PCG_PATHS[path], ctypes.byref(taken),
+                 _stream(S_corr))
     _check("schur_pcg", err)
+    name = "cluster" if taken.value == PCG_PATHS["cluster"] else "grid"
     LAUNCHES["schur_pcg"] += 1
+    LAUNCHES[f"schur_pcg_{name}"] += 1
+
+
+def launch_sync_probe(device: torch.device, reps: int, blocks: int = 0,
+                      cluster_ctas: int = 0):
+    """Launch ``reps`` grid syncs of a cooperative grid of ``blocks`` CTAs,
+    or, with ``cluster_ctas``, ``reps`` barriers of one cluster of that
+    many CTAs, both of the PCG kernel's CTA size: a measurement of one
+    exchange's cost."""
+    with torch.cuda.device(device):
+        err = library().ppsfm_sync_probe(
+            cluster_ctas, reps, blocks,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _check("sync_probe", err)
+    LAUNCHES["sync_probe"] += 1
+
+
+def launch_l2_probe(buf: torch.Tensor, reps: int, out: torch.Tensor,
+                    blocks: int):
+    """Launch ``reps`` reads of ``buf`` (float32, a multiple of 4 values,
+    16-byte aligned) by ``blocks`` CTAs of the PCG kernel's size, one sum a
+    thread into ``out`` (blocks * 512 float32): a measurement of the L2
+    read rate where buf fits in L2."""
+    with torch.cuda.device(buf.device):
+        err = library().ppsfm_l2_probe(buf.data_ptr(), buf.numel() // 4,
+                                       reps, out.data_ptr(), blocks,
+                                       _stream(buf))
+    _check("l2_probe", err)
+    LAUNCHES["l2_probe"] += 1
 
 
 def launch_match_top2(d1: torch.Tensor, d2: torch.Tensor, v1: torch.Tensor,

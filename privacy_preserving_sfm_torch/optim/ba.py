@@ -13,15 +13,16 @@ Problem layout:
   points   P:  points3d (P, 3), point mask (P,) (variable vs constant).
   obs      O:  camera index, point index, line (O, 3), weight (O,).
 
-The flat solver reduces per-observation blocks into the C camera and P
-point bins with ``index_add_`` (the reference's ``segment_sum``).  On a
-CUDA device ``index_add_`` sums with atomics, in an order that changes
-from run to run, so float32 results vary in their last bits between runs;
-the reduced 3x3 and 6x6 blocks are symmetrized so that this never breaks
-their symmetry, and on the card an LM run can take another accept/reject
-path, and so another iteration count, from one run to the next.  The flat
-and dense solvers read their options as given, as their references do
-(``ba_soa`` rounds its options through float32, as its reference does).
+The solvers reduce per-observation blocks into the C camera (and, here,
+the P point) bins with ``_bins`` (the reference's ``segment_sum`` and
+one-hot contractions).  It adds each bin's rows in ascending source
+position, the order of ``index_add_`` on the CPU, through a ``BinPlan``
+that each solve builds once (``bin_plan``: the bin ids do not change
+within a solve).  So a float32 solve on the card gives one result, and one
+LM iteration count, in every run: ``index_add_`` on CUDA adds with
+atomics, in an order that changes from run to run.  The flat and dense
+solvers read their options as given, as their references do (``ba_soa``
+rounds its options through float32, as its reference does).
 """
 
 from __future__ import annotations
@@ -179,9 +180,8 @@ def _inv6(A: torch.Tensor) -> torch.Tensor:
 
 
 def _sym(A: torch.Tensor) -> torch.Tensor:
-    """Mean of A and its transpose: exact on the CPU, where ``index_add_``
-    sums both triangles in one order; restores symmetry under CUDA
-    atomics."""
+    """Mean of A and its transpose: exact for bins from ``_bins``, which
+    sums both triangles of symmetric blocks in one order."""
     return 0.5 * (A + A.transpose(-1, -2))
 
 
@@ -342,10 +342,29 @@ def _cost(problem: BAProblem, qvecs, tvecs, points, camera_model: str,
                            * problem.obs_weight)
 
 
-def _bins(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Sum of ``values`` rows into ``n`` bins by ``index``."""
-    return values.new_zeros((n,) + values.shape[1:]).index_add_(
-        0, index, values)
+class BinPlan(NamedTuple):
+    """The order in which ``_bins`` sums rows into bins, built once per
+    solve by ``bin_plan``."""
+    order: torch.Tensor    # (N,) source positions, by bin, stable
+    offsets: torch.Tensor  # (num_bins + 1,) each bin's range of order
+
+
+def bin_plan(num_bins: int, index: torch.Tensor) -> BinPlan:
+    """The plan of bin ids ``index`` (N,) in [0, num_bins), in torch ops on
+    index's device, with no host synchronisation."""
+    keys, order = torch.sort(index, stable=True)
+    offsets = torch.searchsorted(keys, torch.arange(
+        num_bins + 1, dtype=keys.dtype, device=keys.device))
+    return BinPlan(order, offsets)
+
+
+def _bins(plan: BinPlan, values: torch.Tensor) -> torch.Tensor:
+    """Sum of ``values`` rows (N, ...) into the plan's bins.  Each bin adds
+    its rows one after another in ascending source position, on every
+    device and in every run: on the CPU, bit for bit what ``index_add_``
+    gives (an empty bin is 0)."""
+    return torch.segment_reduce(values.index_select(0, plan.order), "sum",
+                                offsets=plan.offsets, axis=0)
 
 
 def damped(H: torch.Tensor, lam: float) -> torch.Tensor:
@@ -367,6 +386,7 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
     _check_loss(loss)
     eye6 = torch.eye(6, dtype=problem.points3d.dtype,
                      device=problem.points3d.device)
+    cams, pts = bin_plan(C, oc), bin_plan(P, op)
 
     def cost_fn(q, t, X):
         return _cost(problem, q, t, X, camera_model, loss, scale)
@@ -381,8 +401,8 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
         Hcp_o = torch.einsum("ori,orj,o->oij", Jc, Jp, w)  # (O, 6, 3)
         gc_o = torch.einsum("ori,or,o->oi", Jc, r, w)
         gp_o = torch.einsum("ori,or,o->oi", Jp, r, w)
-        return (_sym(_bins(C, oc, Hcc_o)), _sym(_bins(P, op, Hpp_o)), Hcp_o,
-                _bins(C, oc, gc_o), _bins(P, op, gp_o))
+        return (_sym(_bins(cams, Hcc_o)), _sym(_bins(pts, Hpp_o)), Hcp_o,
+                _bins(cams, gc_o), _bins(pts, gp_o))
 
     @record_function("ba.solve_step")
     def solve_step(normal, lam):
@@ -391,20 +411,20 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
         Hpp_inv = linalg.inv3(damped(Hpp, lam))  # (P, 3, 3)
 
         def S_matvec(v):  # v: (C, 6)
-            Etv = _bins(P, op, torch.einsum("oji,oj->oi", Hcp_o, v[oc]))
+            Etv = _bins(pts, torch.einsum("oji,oj->oi", Hcp_o, v[oc]))
             y = torch.einsum("pij,pj->pi", Hpp_inv, Etv)
-            Ey = _bins(C, oc, torch.einsum("oij,oj->oi", Hcp_o, y[op]))
+            Ey = _bins(cams, torch.einsum("oij,oj->oi", Hcp_o, y[op]))
             return torch.einsum("cij,cj->ci", dHcc, v) - Ey
 
         # RHS g_c - E Hpp^-1 g_p and the Schur-Jacobi preconditioner.
         y0 = torch.einsum("pij,pj->pi", Hpp_inv, gp)
-        rhs = gc - _bins(C, oc, torch.einsum("oij,oj->oi", Hcp_o, y0[op]))
+        rhs = gc - _bins(cams, torch.einsum("oij,oj->oi", Hcp_o, y0[op]))
         SJ_o = torch.einsum("oij,ojk,olk->oil", Hcp_o, Hpp_inv[op], Hcp_o)
-        SJ_inv = _inv6(dHcc - _bins(C, oc, SJ_o) + 1e-12 * eye6)
+        SJ_inv = _inv6(dHcc - _bins(cams, SJ_o) + 1e-12 * eye6)
         dc = _finite_or_zero(block_jacobi_cg(S_matvec, SJ_inv, rhs,
                                              options.cg_iterations))
         # Back-substitution: dp = Hpp^-1 (gp - E^T dc).
-        Etdc = _bins(P, op, torch.einsum("oji,oj->oi", Hcp_o, dc[oc]))
+        Etdc = _bins(pts, torch.einsum("oji,oj->oi", Hcp_o, dc[oc]))
         dp = torch.einsum("pij,pj->pi", Hpp_inv, gp - Etdc)
         return dc, _finite_or_zero(dp)
 

@@ -6,16 +6,17 @@ are laid out densely per point,
   cam_idx (P, K), lines (P, K, 3), weight (P, K)   with K = max track len,
 
 so point-side reductions are sums over the K axis, and only the reductions
-into the C camera bins remain scatters (``index_add_``).
+into the C camera bins remain (``ba._bins``, in a fixed order from a plan
+built once per solve, so a float32 solve gives one result every run).
 ``bundle_adjust_dense`` is the LM solver of ``optim/ba.py`` on this
 layout, with two ways to solve the reduced camera system:
 
 * **explicit** — with L = chol(Hpp_damped^-1), the per-slot blocks
   LH = L^T Hcp (P, K, 3, 6) go to the AoS Schur Gram
   ``schur_pcg.gram_aos`` (``kernels/schur_gram.cu`` on CUDA, with its
-  plan of the camera ids built once per solve), and the
-  dense S = dHcc - S_corr, identity-padded to ``padded_dim(C)``, to the
-  PCG ``schur_pcg.pcg`` (``kernels/schur_pcg.cu`` on CUDA);
+  plan of the camera ids built once per solve), and S = blockdiag(dHcc)
+  - S_corr, as S_corr and the (C, 6, 6) blocks, to the PCG
+  ``schur_pcg.pcg_schur`` (``kernels/schur_pcg.cu`` on CUDA);
 * **implicit** — the matrix-free block-Jacobi CG of ``ba.py``, whose
   matvec never forms S: the scalable path for C > 1024, where the mapper
   runs it automatically.
@@ -24,8 +25,7 @@ layout, with two ways to solve the reduced camera system:
 whatever the device (a reference run on the card).  ``torch.profiler``
 sees the spans ``ba_dense.build_normal``, ``ba_dense.solve_step``,
 ``ba_dense.gram`` and ``ba_dense.pcg`` (explicit), ``ba_dense.cg``
-(implicit).  As in ``ba.py``, CUDA atomics in ``index_add_`` make float32
-results vary in their last bits from run to run.
+(implicit).
 
 Differences from the reference, none semantic:
   * K is the longest track, not a rung of the reference's K ladder (that
@@ -33,7 +33,7 @@ Differences from the reference, none semantic:
     exact zeros);
   * the per-camera gather tables (``cam_gather``) and the three
     ``cam_reduce`` strategies (one-hot matmul, gather, two layouts) are
-    TPU layout choices; the camera bins are summed by ``index_add_``;
+    TPU layout choices; the camera bins are summed by ``ba._bins``;
   * padding slots reach the Gram with camera id -1, so its kernel skips
     them; their blocks are zero either way;
   * ``gram_mode`` and ``PPSFM_PCG`` (TPU kernel against XLA loop) have no
@@ -162,12 +162,11 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
     ba_mod._check_loss(loss)
     explicit = uses_explicit(options.schur_mode, dev.type, C)
     gram = schur_pcg.gram_aos_plain if plain else schur_pcg.gram_aos
-    pcg = schur_pcg.pcg_plain if plain else schur_pcg.pcg
+    pcg = schur_pcg.pcg_schur_plain if plain else schur_pcg.pcg_schur
     eye6 = torch.eye(6, dtype=problem.points3d.dtype, device=dev)
     n = 6 * C
-    n_pad = schur_pcg.padded_dim(C)
     oc = problem.obs_cam  # (P, K)
-    oc_flat = oc.reshape(-1)
+    cams = ba_mod.bin_plan(C, oc.reshape(-1))  # camera bins' sum order
     # The Gram kernel skips negative camera ids: padding slots get -1.
     cam_gram = torch.where(problem.obs_weight > 0, oc, -1).to(torch.int32)
     # The Gram kernel's plan of these ids, built once for the solve.
@@ -176,8 +175,8 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
 
     def cam_bins(values):
         """(P, K, ...) per-slot values -> (C, ...) camera bins."""
-        return ba_mod._bins(C, oc_flat, values.reshape((P * K,)
-                                                       + values.shape[2:]))
+        return ba_mod._bins(cams, values.reshape((P * K,)
+                                                 + values.shape[2:]))
 
     def cost_fn(q, t, X):
         return _cost(problem, q, t, X, camera_model, loss, scale)
@@ -206,13 +205,9 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
         rhs = gc.reshape(n) - rhs_corr
         SJ_inv = ba_mod._inv6(dHcc - schur_pcg.diag_blocks(S_corr, C)
                               + 1e-12 * eye6)
-        S = schur_pcg.embed_block_diag(dHcc, n_pad)
-        S[:n, :n] -= S_corr
-        Minv = schur_pcg.embed_block_diag(SJ_inv, n_pad)
-        rhs_p = torch.cat([rhs, rhs.new_zeros(n_pad - n)])
         with record_function("ba_dense.pcg"):
-            dcf = pcg(S, Minv, rhs_p, options.cg_iterations)
-        return dcf[:n].reshape(C, 6)
+            dcf = pcg(S_corr, dHcc, SJ_inv, rhs, options.cg_iterations)
+        return dcf.reshape(C, 6)
 
     def solve_implicit(dHcc, Hpp_inv, Hcp_o, gc, gp):
         """Matrix-free CG: S v = dHcc v - E Hpp^-1 E^T v."""

@@ -15,15 +15,17 @@ masks as the reference; per LM iteration:
    padding slots reach it with camera id -1, so its kernel skips them;
    its plan of the camera ids, ``schur_pcg.gram_plan``, is built once per
    solve);
-3. the reduced camera system S = dHcc - S_corr (dense, identity-padded to
-   ``padded_dim(C)``) is solved by ``schur_pcg.pcg`` with the block-Jacobi
-   preconditioner, and the point steps are back-substituted.
+3. the reduced camera system S = blockdiag(dHcc) - S_corr is solved by
+   ``schur_pcg.pcg_schur`` with the block-Jacobi preconditioner, from
+   S_corr and the (C, 6, 6) blocks as they are (no dense S or Minv is
+   built), and the point steps are back-substituted.
 
 Layout: observations are indexed flat as k*P + p (slot-major), so every
 per-observation tensor reshapes to (K, P, ...) and point-side sums run
 over the K axis.  The reference's TPU layout tricks (one-hot MXU gathers,
 optimization barriers, tuples of (K, P) component arrays) are replaced by
-``index_select``-style gathers and ``index_add_``.
+``index_select``-style gathers and the camera bins of ``ba._bins``, summed
+in a fixed order from a plan built once per solve.
 
 The LM loop is a Python loop that reads the accept flag once per
 iteration (and the gradient norm, when a gradient tolerance is set).
@@ -88,10 +90,9 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     dev = problem.points3d.device
     dyn = ba_mod.DynamicBAOptions.from_options(options)
     gram = schur_pcg.gram_soa_plain if plain else schur_pcg.gram_soa
-    pcg = schur_pcg.pcg_plain if plain else schur_pcg.pcg
+    pcg = schur_pcg.pcg_schur_plain if plain else schur_pcg.pcg_schur
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     n = 6 * C
-    n_pad = schur_pcg.padded_dim(C)
 
     # ---- static observation-side tensors (once per solve) ----
     oc_kp = problem.obs_cam.T.contiguous()  # (K, P)
@@ -102,6 +103,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     gram_kw = {} if plain else {
         "plan": schur_pcg.gram_plan(cam_kp32, C, "soa")}
     oc = oc_kp.reshape(-1)  # (K*P,), index k*P + p
+    cams = ba_mod.bin_plan(C, oc)  # the camera bins' summation order
     w_o = problem.obs_weight.T.reshape(-1).to(dtype)
     line_o = problem.obs_line.transpose(0, 1).reshape(-1, 3)
     par_o = problem.cam_params[oc]
@@ -132,8 +134,8 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         hcc_o = (Jc[:, :, :, None] * Jc[:, :, None, :]).sum(1) \
             * w[:, None, None]
         gc_o = (Jc * r[:, :, None]).sum(1) * w[:, None]
-        Hcc = ba_mod._sym(ba_mod._bins(C, oc, hcc_o))
-        gc = ba_mod._bins(C, oc, gc_o)
+        Hcc = ba_mod._sym(ba_mod._bins(cams, hcc_o))
+        gc = ba_mod._bins(cams, gc_o)
         return cost, (hpp, gp, hcp, Hcc, gc)
 
     @record_function("ba_soa.solve_step")
@@ -165,13 +167,9 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         rhs = gc.reshape(n) - rhs_corr
         SJ = dHcc - schur_pcg.diag_blocks(S_corr, C)
         SJ_inv = ba_mod._inv6(SJ + 1e-12 * eye6)
-        S = schur_pcg.embed_block_diag(dHcc, n_pad)
-        S[:n, :n] -= S_corr
-        Minv = schur_pcg.embed_block_diag(SJ_inv, n_pad)
-        rhs_p = torch.cat([rhs, rhs.new_zeros(n_pad - n)])
         with record_function("ba_soa.pcg"):
-            dcf = pcg(S, Minv, rhs_p, options.cg_iterations)
-        dc = ba_mod._finite_or_zero(dcf[:n].reshape(C, 6))
+            dcf = pcg(S_corr, dHcc, SJ_inv, rhs, options.cg_iterations)
+        dc = ba_mod._finite_or_zero(dcf.reshape(C, 6))
 
         # Back-substitution: dp = Hpp_inv (gp - E^T dc).
         dcg = dc[oc_kp]  # (K, P, 6)

@@ -15,16 +15,20 @@ version and a hand-written Hopper kernel (``kernels/``):
     Plain twin of ``build_u_matrix`` + the one Gram product of
     ``ba_dense``: ``gram_aos_plain``.  Kernel: the same source with its
     AoS staging (replaces the TPU kernel ``gram_fused``).
-* ``pcg``: a fixed number of block-Jacobi PCG steps on dense S.  Plain
-  twin of ``pcg_xla``: ``pcg_plain``.  Kernel: ``kernels/schur_pcg.cu``
-  (replaces the TPU kernel ``pcg_fused``).
+* ``pcg_schur``: a fixed number of block-Jacobi PCG steps on the reduced
+  camera system S = blockdiag(dHcc) - S_corr, taken as the solvers hold
+  it (S_corr, the (C, 6, 6) blocks dHcc and the preconditioner's blocks;
+  no dense S or Minv, no padding).  Plain twin: ``pcg_schur_plain``, the
+  reference's padded dense system through ``pcg_plain`` (the twin of
+  ``pcg_xla``).  Kernel: ``kernels/schur_pcg.cu`` (replaces the TPU kernel
+  ``pcg_fused``).  ``pcg`` keeps ``pcg_xla``'s dense contract on the CPU.
 
-``gram_soa``, ``gram_aos`` and ``pcg`` dispatch on the device of their
-inputs: tensors on the CPU take the plain version, CUDA tensors launch
-the kernel, and anything else raises.  There is no fallback from a failed
-kernel.  The reference's ``gram_mode`` and ``PPSFM_PCG`` switches (TPU
-kernel against XLA loop) have no counterpart: ``plain=True`` on a solver
-is the only way to the plain versions on the card.
+``gram_soa``, ``gram_aos`` and ``pcg_schur`` dispatch on the device of
+their inputs: tensors on the CPU take the plain version, CUDA tensors
+launch the kernel, and anything else raises.  There is no fallback from a
+failed kernel.  The reference's ``gram_mode`` and ``PPSFM_PCG`` switches
+(TPU kernel against XLA loop) have no counterpart: ``plain=True`` on a
+solver is the only way to the plain versions on the card.
 
 ``precision="bf16"`` is the Gram's one lower-precision mode (the
 reference's ``schur_precision``): V's entries are rounded to bfloat16 and
@@ -394,35 +398,93 @@ def pcg_plain(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,
     return x
 
 
-def _pcg_cuda(S, Minv, rhs, iters):
-    N = S.shape[0]
-    if S.dtype not in (torch.float32, torch.float64) or \
-            Minv.dtype != S.dtype or rhs.dtype != S.dtype:
-        raise TypeError("pcg kernel takes float32 or float64 S/Minv/rhs of "
-                        f"one dtype, got {S.dtype}/{Minv.dtype}/{rhs.dtype}")
-    if S.shape != (N, N) or Minv.shape != (N, N) or rhs.shape != (N,):
-        raise ValueError("pcg shapes: S, Minv (N, N), rhs (N,); got "
-                         f"{tuple(S.shape)}, {tuple(Minv.shape)}, "
-                         f"{tuple(rhs.shape)}")
-    if Minv.device != S.device or rhs.device != S.device:
-        raise ValueError("pcg inputs must share one device")
-    S = S.contiguous()
-    Minv = Minv.contiguous()
-    rhs = rhs.contiguous()
-    x = torch.empty_like(rhs)
-    work = torch.empty(4 * N + 2 * kernels.PCG_MAX_BLOCKS, dtype=S.dtype,
-                       device=S.device)
-    kernels.launch_schur_pcg(S, Minv, rhs, x, work, iters)
-    return x
-
-
 def pcg(S: torch.Tensor, Minv: torch.Tensor, rhs: torch.Tensor,
         iters: int) -> torch.Tensor:
     """Solve S x = rhs by ``iters`` steps of PCG with preconditioner Minv.
 
     S, Minv: (N, N) symmetric; rhs: (N,).  CPU tensors take
-    ``pcg_plain``; CUDA tensors launch ``kernels/schur_pcg.cu``.
+    ``pcg_plain``.  There is no kernel for a dense Minv: the solvers'
+    preconditioners are block-diagonal, and their systems go to
+    ``pcg_schur``, so CUDA tensors raise.
     """
     if _device_kind(S) == "cpu":
         return pcg_plain(S, Minv, rhs, iters)
-    return _pcg_cuda(S, Minv, rhs, iters)
+    raise RuntimeError("pcg has no kernel for a dense Minv: solve "
+                       "(blockdiag(dHcc) - S_corr) x = rhs with a "
+                       "block-Jacobi preconditioner by pcg_schur")
+
+
+def pcg_schur_plain(S_corr: torch.Tensor, dHcc: torch.Tensor,
+                    minv_blocks: torch.Tensor, rhs: torch.Tensor,
+                    iters: int) -> torch.Tensor:
+    """Plain version of ``pcg_schur``: the reference's dense system, S and
+    Minv identity-padded to ``padded_dim(C)`` with a zero rhs there, solved
+    by ``pcg_plain`` and cut back to 6C."""
+    C = dHcc.shape[0]
+    n, n_pad = 6 * C, padded_dim(C)
+    S = embed_block_diag(dHcc, n_pad)
+    S[:n, :n] -= S_corr
+    Minv = embed_block_diag(minv_blocks, n_pad)
+    rhs_p = torch.cat([rhs, rhs.new_zeros(n_pad - n)])
+    return pcg_plain(S, Minv, rhs_p, iters)[:n]
+
+
+def _pcg_schur_cuda(S_corr, dHcc, minv_blocks, rhs, iters, path):
+    C = dHcc.shape[0]
+    n = 6 * C
+    dtype = S_corr.dtype
+    if dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != dtype for t in (dHcc, minv_blocks, rhs)):
+        raise TypeError("pcg_schur kernel takes float32 or float64 inputs "
+                        f"of one dtype, got {S_corr.dtype}/{dHcc.dtype}/"
+                        f"{minv_blocks.dtype}/{rhs.dtype}")
+    if any(t.device != S_corr.device for t in (dHcc, minv_blocks, rhs)):
+        raise ValueError("pcg_schur inputs must share one device")
+    # The kernel reads S_corr rows with 16-byte loads.
+    S_corr = S_corr.contiguous()
+    if S_corr.data_ptr() % 16:
+        S_corr = S_corr.clone()
+    x = torch.empty(n, dtype=dtype, device=S_corr.device)
+    blocks = torch.cuda.get_device_properties(
+        S_corr.device).multi_processor_count
+    # Grid path scratch: z, Ap and two partials a CTA.
+    work = torch.empty(2 * n + 2 * blocks, dtype=dtype, device=S_corr.device)
+    kernels.launch_schur_pcg(S_corr, dHcc.contiguous(),
+                             minv_blocks.contiguous(), rhs.contiguous(), x,
+                             work, iters, blocks, path)
+    return x
+
+
+def pcg_schur(S_corr: torch.Tensor, dHcc: torch.Tensor,
+              minv_blocks: torch.Tensor, rhs: torch.Tensor, iters: int,
+              path: str = "auto") -> torch.Tensor:
+    """Solve (blockdiag(dHcc) - S_corr) x = rhs by ``iters`` steps of PCG
+    with the block-Jacobi preconditioner ``minv_blocks``.
+
+    S_corr: (6C, 6C) symmetric; dHcc, minv_blocks: (C, 6, 6); rhs: (6C,).
+    The reference solves the same system identity-padded to
+    ``padded_dim(C)``; on the padding r, z, p and S p stay exactly 0, so the
+    kernel works at 6C.  CPU tensors take ``pcg_schur_plain``; CUDA tensors
+    launch ``kernels/schur_pcg.cu`` on its ``path``: "cluster" (S_corr held
+    in one thread-block cluster's shared memory; raises where it does not
+    fit), "grid" (a cooperative grid streaming S_corr), or "auto", the
+    cluster path where it fits (float32 C <= 155, float64 C <= 109 on the
+    H100), else the grid path: the cluster path was the faster at every C
+    where both run (PERF.md, section 6).  The solvers take "auto"; the
+    other two let the kernel tests and ``chip_smoke.py`` check and time
+    each path at one C.
+    """
+    if path not in kernels.PCG_PATHS:
+        raise ValueError(f"pcg_schur path must be one of "
+                         f"{tuple(kernels.PCG_PATHS)}, got {path!r}")
+    C = dHcc.shape[0]
+    n = 6 * C
+    if (tuple(S_corr.shape), tuple(minv_blocks.shape), tuple(rhs.shape),
+            tuple(dHcc.shape)) != ((n, n), (C, 6, 6), (n,), (C, 6, 6)):
+        raise ValueError("pcg_schur shapes: S_corr (6C, 6C), dHcc and "
+                         "minv_blocks (C, 6, 6), rhs (6C,); got "
+                         f"{tuple(S_corr.shape)}, {tuple(dHcc.shape)}, "
+                         f"{tuple(minv_blocks.shape)}, {tuple(rhs.shape)}")
+    if _device_kind(S_corr) == "cpu":
+        return pcg_schur_plain(S_corr, dHcc, minv_blocks, rhs, iters)
+    return _pcg_schur_cuda(S_corr, dHcc, minv_blocks, rhs, iters, path)

@@ -169,22 +169,115 @@ def test_gram_bf16_kernel_matches_plain(cuda, layout, dtype, K):
     assert (S32 - S).abs().max() > 1e-4 * S_ref.abs().max()
 
 
+def _pcg_system(C, device, seed=2):
+    """S = blockdiag(dHcc) - S_corr SPD, in the solvers' form: S_corr = -G
+    for a Gram G, damping blocks dHcc, the block-Jacobi preconditioner the
+    solvers build (float64)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((3 * 6 * C, 6 * C))
+    G = A.T @ A
+    d = np.diagonal(G).reshape(C, 6)
+    dHcc = np.zeros((C, 6, 6))
+    dHcc[:, np.arange(6), np.arange(6)] = 0.1 * d + 1e-3 * d.max()
+    SJ = dHcc + G.reshape(C, 6, C, 6)[np.arange(C), :, np.arange(C), :]
+    return [torch.tensor(a, device=device) for a in (
+        -G, dHcc, np.linalg.inv(SJ), rng.standard_normal(6 * C))]
+
+
+# C, path: both paths where the cluster fits (C = 100 is BA-100's), and a C
+# past the cluster path's shared memory, where "auto" takes the grid.
+PCG_CASES = [(9, "cluster"), (9, "grid"), (100, "cluster"), (100, "grid"),
+             (200, "auto")]
+
+
+@pytest.mark.parametrize("iters", [29, 30])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("C", [9, 100])
-def test_pcg_kernel_matches_plain(cuda, dtype, C):
-    rng = np.random.default_rng(2)
-    N = tsp.padded_dim(C)
-    A = rng.standard_normal((N, N))
-    S = torch.tensor(A @ A.T + N * np.eye(N), dtype=dtype, device=cuda)
-    Minv = torch.diag(1.0 / torch.diagonal(S))
-    rhs = torch.tensor(rng.standard_normal(N), dtype=dtype, device=cuda)
-    x_ref = tsp.pcg_plain(S.double(), Minv.double(), rhs.double(), 30)
-    n0 = kernels.LAUNCHES["schur_pcg"]
-    x = tsp.pcg(S, Minv, rhs, 30)
+@pytest.mark.parametrize("C,path", PCG_CASES)
+def test_pcg_kernel_matches_plain(cuda, dtype, C, path, iters):
+    """The kernel on each path against its plain twin (the reference's
+    padded dense system), an odd and an even step count; one launch
+    counted on the path taken; two launches bit-equal."""
+    system = _pcg_system(C, cuda)
+    x_ref = tsp.pcg_schur_plain(*system, iters)
+    args = [a.to(dtype) for a in system]
+    n0 = dict(kernels.LAUNCHES)
+    x = tsp.pcg_schur(*args, iters, path=path)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["schur_pcg"] == n0 + 1
+    taken = "grid" if path == "auto" else path
+    assert kernels.LAUNCHES["schur_pcg"] == n0["schur_pcg"] + 1
+    assert kernels.LAUNCHES[f"schur_pcg_{taken}"] == \
+        n0[f"schur_pcg_{taken}"] + 1
     tol = 1e-10 if dtype == torch.float64 else 1e-4
     assert float((x.double() - x_ref).norm() / x_ref.norm()) <= tol
+    assert torch.equal(x, tsp.pcg_schur(*args, iters, path=path))
+
+
+def test_pcg_kernel_refuses_what_it_cannot_run(cuda):
+    """A cluster too large for shared memory raises (no silent switch of
+    path), and the dense contract has no kernel on the card."""
+    system = [a.float() for a in _pcg_system(200, cuda)]
+    with pytest.raises(RuntimeError, match="schur_pcg kernel launch"):
+        tsp.pcg_schur(*system, 10, path="cluster")
+    S = torch.eye(128, device=cuda)
+    with pytest.raises(RuntimeError, match="pcg_schur"):
+        tsp.pcg(S, S, S[0], 10)
+
+
+def test_floor_probes_run(cuda):
+    """The probes behind the PCG's floor launch and are counted: grid syncs
+    of one CTA an SM, barriers of a 16-CTA cluster, L2 reads."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n0 = dict(kernels.LAUNCHES)
+    kernels.launch_sync_probe(cuda, 10, blocks=sms)
+    kernels.launch_sync_probe(cuda, 10, cluster_ctas=16)
+    buf = torch.ones(4096, device=cuda)
+    out = torch.empty(sms * 512, device=cuda)
+    kernels.launch_l2_probe(buf, 3, out, sms)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sync_probe"] == n0["sync_probe"] + 2
+    assert kernels.LAUNCHES["l2_probe"] == n0["l2_probe"] + 1
+    assert float(out.sum()) == 3 * 4096
+
+
+@pytest.fixture(scope="module")
+def ba100():
+    """BA-100 (100 cameras, 20,000 points, 120,000 observations) assembled
+    in float32 on the card, as the CLI assembles it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import synthetic_model
+
+    rec = synthetic_model(100, 20000, 6, seed=0, meas_noise=2e-4)
+    rec.filter_observations_with_negative_depth()
+    mapper = IncrementalMapper(torch.device("cuda"), torch.float32)
+    mapper.begin_reconstruction(rec)
+    reg = rec.reg_image_ids
+    asm = mapper.assemble_ba(reg, {reg[0]}, {reg[1]})
+    return tbd.from_flat_problem(asm.problem), asm.camera_model
+
+
+@pytest.mark.parametrize("route", ["soa", "explicit", "implicit"])
+def test_float32_ba_gives_one_result_every_run(cuda, ba100, route):
+    """Two solves of one float32 BA-100 model on each of the mapper's
+    routes on the card: bit-equal poses and points, equal LM iteration
+    counts (the camera bins are summed in a fixed order)."""
+    dense, model = ba100
+    opts = tba.BAOptions(max_iterations=20,
+                         schur_mode="auto" if route == "soa" else route)
+    runs = []
+    for _ in range(2):
+        if route == "soa":
+            runs.append(tsoa.bundle_adjust_soa(dense, model, opts))
+        else:
+            runs.append(tbd.bundle_adjust_dense(dense, model, opts))
+    (*a, sa), (*b, sb) = runs
+    assert sa.num_iterations == sb.num_iterations > 1
+    assert sa.final_cost == sb.final_cost < sa.initial_cost
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_bundle_adjust_soa_kernels_match_plain(cuda):

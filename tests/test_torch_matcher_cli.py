@@ -8,6 +8,7 @@ match blobs must be byte-identical, in resident and in block mode, and
 through each matcher subcommand.
 """
 
+import inspect
 import shutil
 import sqlite3
 
@@ -140,7 +141,9 @@ def test_cli_writes_reference_match_tables(scene_db, tmp_path, cmd, capsys):
         for path, match, Db in ((pj, js, JDatabase), (pt, ts, TDatabase)):
             with Db(str(path)) as db:
                 ids = sorted(db.read_images())
-                match.match_pair_list(db, ids, ts.sequential_pairs(ids, 1))
+                kw = {"device": CPU} if match is ts else {}
+                match.match_pair_list(db, ids, ts.sequential_pairs(ids, 1),
+                                      **kw)
     if match_type:
         args += ["--match_list_path",
                  _pair_list(tmp_path, scene_db[1], match_type[0] == "raw"),
@@ -168,3 +171,10 @@ def test_cuda_device_without_gpu_is_an_error(scene_db, tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main([cmd, "--database_path", str(path), "--device", "cuda"])
     assert _blobs(path) == {}
+
+
+def test_match_pair_list_runs_on_the_card_by_default():
+    """An entry point runs on the card unless the caller asks for the CPU,
+    as the CLI's ``--device`` does."""
+    default = inspect.signature(ts.match_pair_list).parameters["device"]
+    assert default.default == torch.device("cuda")

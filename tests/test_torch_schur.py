@@ -4,7 +4,9 @@
 and against the reference's Pallas kernels in interpret mode (float32,
 the tolerance of ``tests/test_ba_soa.py``), at the toy shapes those tests
 use, plus one K = 32 case the Pallas kernels cannot take.  ``pcg_plain``
-is held against ``pcg_xla`` and the interpret-mode ``pcg_fused``.
+and ``pcg_schur``'s plain twin (the solvers' block contract at n = 6C) are
+held against ``pcg_xla`` and the interpret-mode ``pcg_fused`` on the
+reference's padded dense system.
 """
 
 import numpy as np
@@ -122,6 +124,81 @@ def test_pcg_plain_guards_zero_rhs():
     np.testing.assert_array_equal(np.asarray(x_x), x.numpy())
 
 
+def _schur_system(C, seed):
+    """The solvers' form of a reduced camera system S = blockdiag(dHcc) -
+    S_corr from a Gram G of random blocks: S_corr = -G and dHcc damping
+    blocks, so S = G + damping is SPD; the block-Jacobi preconditioner
+    inv(dHcc - diag_blocks(S_corr)) as the solvers build it; a rhs."""
+    lh, gl, cam = _gram_inputs(seed, 4, 12 * C, C)
+    G, _ = _torch_gram(lh, gl, cam, C)
+    rng = np.random.default_rng(seed)
+    d = np.diagonal(G).reshape(C, 6)
+    dHcc = np.zeros((C, 6, 6))
+    dHcc[:, np.arange(6), np.arange(6)] = 0.1 * d + 1e-3 * d.max()
+    S_corr = -G
+    SJ = dHcc + G.reshape(C, 6, C, 6)[np.arange(C), :, np.arange(C), :]
+    return S_corr, dHcc, np.linalg.inv(SJ), rng.standard_normal(6 * C)
+
+
+def _reference_dense(S_corr, dHcc, minv, rhs):
+    """The reference's padded dense system (``ba_soa.py:354-357``)."""
+    C = dHcc.shape[0]
+    n, n_pad = 6 * C, jsp.padded_dim(C)
+    S = jsp.embed_block_diag(jnp.asarray(dHcc), n_pad, pad_value=1.0)
+    S = S - jnp.pad(jnp.asarray(S_corr), ((0, n_pad - n), (0, n_pad - n)))
+    Minv = jsp.embed_block_diag(jnp.asarray(minv), n_pad, pad_value=1.0)
+    return S, Minv, jnp.pad(jnp.asarray(rhs), (0, n_pad - n))
+
+
+@pytest.mark.parametrize("C", [9, 40])
+def test_pcg_schur_plain_matches_xla(C):
+    """The block contract at 6C against ``pcg_xla`` on the reference's
+    padded dense system, float64."""
+    S_corr, dHcc, minv, rhs = _schur_system(C, C)
+    x_x = jsp.pcg_xla(*_reference_dense(S_corr, dHcc, minv, rhs), 30)
+    x_t = tsp.pcg_schur(*(torch.tensor(a) for a in (S_corr, dHcc, minv,
+                                                     rhs)), 30)
+    assert x_t.shape == (6 * C,)
+    x_x = np.asarray(x_x)
+    assert not x_x[6 * C:].any()  # the padding stays exactly 0
+    np.testing.assert_allclose(x_t.numpy(), x_x[:6 * C], rtol=1e-10,
+                               atol=1e-10 * np.abs(x_t.numpy()).max())
+
+
+@pytest.mark.parametrize("C", [9, 40])
+def test_pcg_schur_plain_matches_pallas_interpret(C):
+    S_corr, dHcc, minv, rhs = (a.astype(np.float32)
+                               for a in _schur_system(C, C + 1))
+    x_k = jsp.pcg_fused(*_reference_dense(S_corr, dHcc, minv, rhs), iters=25,
+                        interpret=True)
+    x_t = tsp.pcg_schur_plain(*(torch.tensor(a) for a in (S_corr, dHcc, minv,
+                                                           rhs)), 25)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_k)[:6 * C],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_pcg_schur_guards_zero_rhs():
+    """rz = pAp = 0 hits the 1e-30 guards: x stays 0, never NaN, as in
+    ``pcg_xla``."""
+    C = 5
+    eye = torch.eye(6, dtype=torch.float64).repeat(C, 1, 1)
+    S_corr = torch.zeros(6 * C, 6 * C, dtype=torch.float64)
+    x = tsp.pcg_schur(S_corr, eye, eye, torch.zeros(6 * C,
+                                                    dtype=torch.float64), 5)
+    assert torch.equal(x, torch.zeros(6 * C, dtype=torch.float64))
+    x_x = jsp.pcg_xla(*_reference_dense(S_corr.numpy(), eye.numpy(),
+                                        eye.numpy(), np.zeros(6 * C)), 5)
+    np.testing.assert_array_equal(np.asarray(x_x)[:6 * C], x.numpy())
+
+
+def test_pcg_schur_checks_its_arguments():
+    S_corr, dHcc, minv, rhs = (torch.tensor(a) for a in _schur_system(3, 0))
+    with pytest.raises(ValueError, match="path"):
+        tsp.pcg_schur(S_corr, dHcc, minv, rhs, 5, path="fast")
+    with pytest.raises(ValueError, match="shapes"):
+        tsp.pcg_schur(S_corr, dHcc, minv, rhs[:-6], 5)
+
+
 def test_sizes_and_diag_blocks():
     for C in (1, 5, 21, 22, 100, 512, 1024, 1025):
         assert tsp.padded_dim(C) == jsp.padded_dim(C)
@@ -142,3 +219,8 @@ def test_dispatch_refuses_other_devices():
     with pytest.raises(RuntimeError, match="no Schur kernel"):
         tsp.pcg(torch.empty(8, 8, **meta), torch.empty(8, 8, **meta),
                 torch.empty(8, **meta), 3)
+    with pytest.raises(RuntimeError, match="no Schur kernel"):
+        tsp.pcg_schur(torch.empty(12, 12, **meta),
+                      torch.empty(2, 6, 6, **meta),
+                      torch.empty(2, 6, 6, **meta), torch.empty(12, **meta),
+                      3)
