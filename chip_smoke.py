@@ -19,7 +19,15 @@ to the dense-block implicit solver (phase ``dense_implicit``); and
 descriptors (the reference's default feature cap; 2,016 pairs), checked
 against the generator's true correspondences, against the plain version
 on 16 pairs and against the bounded-memory block mode, then once more
-under torch.profiler.  Prints one line per phase and each phase's
+under torch.profiler; the front end (phase ``sift``: SIFT and the line
+lift at ``bench.py``'s shape, its split by span, the card against the CPU
+and against itself, repeatability and inlier rate on rendered plane pairs
+against bars from the reference package, one image at the default cap);
+and ``feature_extractor`` with its defaults on 16 rendered 1,600 x 1,200
+box images, in a fresh process with torch's default flags and again in
+this one (byte-identical rows required), then ``exhaustive_matcher`` on
+its database (phase ``extractor``).  Prints one line per phase and each
+phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
 its bytes at the memory rate), the card's name and power limit, and as
@@ -100,6 +108,22 @@ MATCHER = dict(num_images=64, num_features=8192)
 # Thresholds of the matcher phase against the generator's truth, set from
 # the first run on an H100 (precision 1.00000, recall 0.97531).
 MIN_PRECISION, MIN_RECALL = 0.99, 0.95
+# The front end: bench.py:129-147's throughput shape (B, H, W); the size
+# the CLI's default cap (--max_image_size 3200) allows; the extractor run,
+# (images, (H, W)) of 1DSfM-like photo sizes (1,600 x 1,200).
+SIFT_BENCH = (8, 480, 640)
+SIFT_CAP = (2400, 3200)
+EXTRACTOR = (16, (1200, 1600))
+# tools/frontend_eval.py's pairs (index gap 2), pixel tolerance and
+# feature cap (4,096), and the bars on repeatability and match inlier
+# rate: 0.02 below the reference package's 0.62052 and 0.78430 (692.0
+# matches a pair; both selections alike) on the same rendered images
+# (render_dataset(..., 7, 640, 480, seed=0, scene="plane")), measured with
+# tools/frontend_eval.py on a CPU.
+SIFT_PAIRS = [("img000.png", "img002.png"), ("img002.png", "img004.png"),
+              ("img004.png", "img006.png")]
+SIFT_TOL = 3.0
+MIN_REPEATABILITY, MIN_INLIER_RATE = 0.60, 0.76
 
 
 def check(ok, msg):
@@ -1226,6 +1250,336 @@ def phase_matcher(device, card, workdir):
     return launches
 
 
+def match_keypoints(ka, kb, tol_px, tol_scale):
+    """For each row (x, y, scale, angle) of ka, the row of kb within
+    ``tol_px`` (both coordinates) and ``tol_scale`` relative scale with the
+    nearest angle, or -1."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    out = np.full(len(ka), -1)
+    if not len(ka) or not len(kb):
+        return out
+    near = cKDTree(kb[:, :2]).query_ball_point(ka[:, :2], tol_px * 1.5)
+    for i, cand in enumerate(near):
+        cand = np.asarray(cand, int)
+        cand = cand[(np.abs(kb[cand, :2] - ka[i, :2]).max(1) <= tol_px)
+                    & (np.abs(kb[cand, 2] - ka[i, 2]) <= tol_scale
+                       * ka[i, 2])]
+        if len(cand):
+            da = np.abs((kb[cand, 3] - ka[i, 3] + np.pi) % (2 * np.pi)
+                        - np.pi)
+            out[i] = cand[np.argmin(da)]
+    return out
+
+
+def span_split(name, card, run):
+    """``run()`` once under torch.profiler: the device's busy share, and
+    each ``sift.*`` / ``extraction.*`` span's host time and the device time
+    of the kernels launched inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu = torch.autograd.DeviceType.CPU
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type == cpu}
+    kernels = [e for e in averages if e.device_type != cpu
+               and e.key not in host and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    spans = {}
+    for e in prof.events():
+        if e.device_type != cpu or not e.name.startswith(("sift.",
+                                                          "extraction.")):
+            continue
+        dev, todo = 0.0, list(e.cpu_children)
+        while todo:
+            x = todo.pop()
+            dev += sum(k.duration for k in getattr(x, "kernels", []))
+            todo.extend(x.cpu_children)
+        h, d, n = spans.get(e.name, (0.0, 0.0, 0))
+        spans[e.name] = (h + e.cpu_time_total / 1e3, d + dev / 1e3, n + 1)
+    split = "; ".join(
+        f"{k} host {h:.2f} ms, device {d:.2f} ms ({100 * d / total:.1f} %) "
+        f"x{n}" for k, (h, d, n) in sorted(spans.items(),
+                                           key=lambda kv: -kv[1][1]))
+    top = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms "
+                    f"x{e.count}" for e in sorted(
+                        kernels, key=lambda e: -e.self_device_time_total)[:6])
+    phase(name, f"under torch.profiler: wall {wall * 1e3:.2f} ms, kernel "
+          f"time {total:.2f} ms (busy {100 * total / 1e3 / wall:.1f} %, "
+          f"{sum(e.count for e in kernels)} launches); spans: {split}; top "
+          f"kernels: {top} | {card}")
+    check(total > 0, "the profiled run launched nothing on the card")
+
+
+def frontend_quality(device, ds, opts):
+    """``tools/frontend_eval.py``'s repeatability and match inlier rate on
+    the rendered plane pairs ``SIFT_PAIRS`` of ``ds``, through the port's
+    SIFT and matcher on ``device``."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from privacy_preserving_sfm_torch.features import extraction, matching
+    from privacy_preserving_sfm_torch.features import sift
+    from privacy_preserving_sfm_torch.utils.synthetic import plane_homography
+
+    root, meta = ds
+    feats = {}
+    for name in sorted({n for p in SIFT_PAIRS for n in p}):
+        img = extraction.load_image_grayscale(os.path.join(root, name))
+        f = sift.extract_sift(torch.from_numpy(img)[None].to(device), opts)
+        feats[name] = [t[0] for t in (f.keypoints, f.descriptors, f.valid)]
+    rep, inl, nm = [], [], []
+    for na, nb in SIFT_PAIRS:
+        (kpa, da, va), (kpb, db_, vb) = feats[na], feats[nb]
+        H_ab = (plane_homography(meta, *meta["poses"][nb])
+                @ np.linalg.inv(plane_homography(meta, *meta["poses"][na])))
+        ka, kb = kpa.cpu().numpy(), kpb.cpu().numpy()
+        xa = ka[va.cpu().numpy(), :2]
+        xb = kb[vb.cpu().numpy(), :2]
+        hom = np.concatenate([xa, np.ones((len(xa), 1))], 1) @ H_ab.T
+        xa_b = hom[:, :2] / hom[:, 2:]
+        vis = ((xa_b[:, 0] >= 0) & (xa_b[:, 0] < meta["width"])
+               & (xa_b[:, 1] >= 0) & (xa_b[:, 1] < meta["height"]))
+        d, _ = cKDTree(xb).query(xa_b[vis])
+        rep.append(float((d <= SIFT_TOL).mean()))
+        res = matching.match_descriptors(da, db_, va, vb)
+        idx2 = res.matches.cpu().numpy()
+        rows = np.nonzero(idx2 >= 0)[0]
+        m1 = np.concatenate([ka[rows, :2], np.ones((len(rows), 1))], 1)
+        m1 = m1 @ H_ab.T
+        err = np.linalg.norm(m1[:, :2] / m1[:, 2:] - kb[idx2[rows], :2],
+                             axis=1)
+        inl.append(float((err <= SIFT_TOL).mean()) if len(err) else 0.0)
+        nm.append(len(rows))
+    return float(np.mean(rep)), float(np.mean(inl)), float(np.mean(nm))
+
+
+def phase_sift(device, card, workdir):
+    """The front end on the card: throughput at bench.py's shape with its
+    span split, the card against the CPU and against itself on a rendered
+    plane image, repeatability and inlier rate against the reference
+    package's on the same rendered pairs, and one image at the default
+    cap."""
+    import numpy as np
+    import torch
+
+    from privacy_preserving_sfm_torch.features import extraction, sift
+    from privacy_preserving_sfm_torch.utils.synthetic import render_dataset
+
+    # Throughput at bench.py:129-147's shape: B seeded random images.
+    B, h, w = SIFT_BENCH
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.random((B, h, w), dtype=np.float32)
+                            ).to(device)
+    params = torch.tensor([[500.0, w / 2, h / 2]] * B, device=device)
+    grav = torch.tensor([[0.0, 1.0, 0.0]] * B, device=device)
+    opts = sift.SiftOptions(max_num_features=2048)
+
+    def bench():
+        gens = [torch.Generator(device).manual_seed(i) for i in range(B)]
+        return extraction.extract_and_lift_batch(
+            imgs, "SIMPLE_PINHOLE", params, grav, gens, opts)
+
+    t0 = time.perf_counter()
+    lf = bench()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        bench()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    phase("sift", f"extract_and_lift_batch B={B} {w}x{h} "
+          f"max_num_features=2048: first call {first:.3f} s, warm "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms: best "
+          f"{B / min(times):.1f} images/s; valid "
+          f"{lf.valid.sum(1).tolist()} | {card}")
+    check(bool((lf.valid.sum(1) > 100).all()), "too few features")
+    span_split("sift", card, bench)
+
+    # The card against the CPU, and against itself, on a rendered plane.
+    ds = (os.path.join(workdir, "plane"), render_dataset(
+        os.path.join(workdir, "plane"), 7, 640, 480, seed=0, scene="plane"))
+    img = extraction.load_image_grayscale(os.path.join(ds[0], "img003.png"))
+    dflt = sift.SiftOptions()
+    t0 = time.perf_counter()
+    cpu = sift.extract_sift(torch.from_numpy(img)[None], dflt)
+    cpu_s = time.perf_counter() - t0
+    a = sift.extract_sift(torch.from_numpy(img)[None].to(device), dflt)
+    b = sift.extract_sift(torch.from_numpy(img)[None].to(device), dflt)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    vc, vg = cpu.valid[0].numpy(), a.valid[0].cpu().numpy()
+    kc, kg = cpu.keypoints[0].numpy()[vc], a.keypoints[0].cpu().numpy()[vg]
+    m = match_keypoints(kc, kg, 0.01, 1e-4)
+    j = np.nonzero(m >= 0)[0]
+    dc = cpu.descriptors[0].numpy()[vc].astype(int)[j]
+    dg = a.descriptors[0].cpu().numpy()[vg].astype(int)[m[j]]
+    dq = np.abs(dc - dg).max(1)
+    matched, close = float((m >= 0).mean()), float((dq <= 2).mean())
+    phase("sift", f"rendered 640x480 plane, default options: CPU "
+          f"{len(kc)} keypoints ({cpu_s:.2f} s), card {len(kg)}; "
+          f"{matched:.5f} of the CPU's within 0.01 px and 1e-4 relative "
+          f"scale of the card's (min 0.98), {close:.5f} of those within 2 "
+          f"descriptor quanta (min 0.99; L-inf histogram "
+          f"{np.bincount(dq).tolist()[:6]}); two card runs bit-equal={same}")
+    check(matched >= 0.98, "card keypoints disagree with the CPU's")
+    check(close >= 0.99, "card descriptors disagree with the CPU's")
+    check(same, "two card runs differ")
+
+    # Repeatability and inlier rate (tools/frontend_eval.py's measures).
+    rep, inl, nm = frontend_quality(device, ds, sift.SiftOptions(
+        max_num_features=4096))
+    phase("sift", f"quality: repeatability {rep:.5f} (min "
+          f"{MIN_REPEATABILITY}), match inlier rate {inl:.5f} (min "
+          f"{MIN_INLIER_RATE}), {nm:.1f} matches a pair over "
+          f"{len(SIFT_PAIRS)} pairs")
+    check(rep >= MIN_REPEATABILITY, "repeatability below the bar")
+    check(inl >= MIN_INLIER_RATE, "inlier rate below the bar")
+
+    # One image at the size the default cap allows, default options.
+    big = torch.from_numpy(rng.integers(0, 256, (1,) + SIFT_CAP, np.uint8)
+                           ).to(device)
+    p1, g1 = params[:1] * 5, grav[:1]
+
+    def cap():
+        return extraction.extract_and_lift_batch(
+            big, "SIMPLE_PINHOLE", p1, g1, [torch.Generator(device)], dflt)
+
+    cap()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = cap()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    phase("sift", f"{SIFT_CAP[1]}x{SIFT_CAP[0]} image, default options: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+          f"{int(out.valid.sum())} features, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}")
+
+
+def _feature_rows(path):
+    import sqlite3
+
+    con = sqlite3.connect(path)
+    try:
+        return {t: con.execute(f"SELECT * FROM {t} ORDER BY 1").fetchall()
+                for t in ("images", "descriptors", "line_features",
+                          "gravity_directions")}
+    finally:
+        con.close()
+
+
+def phase_extractor(device, card, workdir):
+    """``feature_extractor`` with its defaults on rendered box images, in a
+    fresh process with torch's default flags, then again in this process
+    (TF32 off throughout); then ``exhaustive_matcher`` on its database.
+    Returns match_top2's launches in the matcher run."""
+    import numpy as np
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.utils.synthetic import render_dataset
+
+    n, (h, w) = EXTRACTOR
+    images = os.path.join(workdir, "images")
+    t0 = time.perf_counter()
+    render_dataset(images, n, w, h, seed=0, scene="box")
+    phase("extractor", f"rendered {n} box images {w}x{h} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def cli(db):
+        return ["feature_extractor", "--database_path", db, "--image_path",
+                images, "--device", device.type]
+
+    fresh = os.path.join(workdir, "fresh.db")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "privacy_preserving_sfm_torch"
+                          ".exe"] + cli(fresh), cwd=REPO, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"feature_extractor failed: {out.stderr}")
+    batches = re.findall(r"\[batch of (\d+): device ([\d.]+)s", out.stdout)
+    peak = re.search(r"peak device memory ([\d.]+) MiB", out.stdout)
+    phase("extractor", f"feature_extractor --device {device.type} in a "
+          f"fresh process (torch's default flags): wall {wall:.2f} s, "
+          f"batches (images, device s) {batches}, peak device memory "
+          f"{peak.group(1) if peak else '?'} MiB | {card}")
+
+    again = os.path.join(workdir, "again.db")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ppsfm.main(cli(again))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = _feature_rows(fresh) == _feature_rows(again)
+    phase("extractor", f"the same run in this process (TF32 off): wall "
+          f"{wall:.2f} s, {n / wall:.2f} images/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; rows "
+          f"byte-identical to the fresh process's={same} | {card}")
+    check(same, "a rerun with the same seed wrote other rows")
+
+    with Database(fresh) as db:
+        ids = sorted(db.read_images())
+        check(len(ids) == n, "an image has no rows")
+        counts, worst_n, worst_g = [], 0.0, 0.0
+        for iid in ids:
+            k = db.count_descriptors(iid)
+            raw = np.frombuffer(db.conn.execute(
+                "SELECT data FROM line_features WHERE image_id = ?",
+                (iid,)).fetchone()[0], np.float32).reshape(-1, 4)
+            aligned = raw[:, 3] > 0
+            g = db.read_gravity(iid)
+            check(k == len(raw) > 0, "descriptor and line rows differ")
+            check(aligned.sum() == k // 2, "aligned count is not floor(n/2)")
+            worst_n = max(worst_n, float(np.abs(np.linalg.norm(
+                raw[:, :2], axis=1) - 1).max()))
+            worst_g = max(worst_g, float(np.abs(raw[aligned, :3] @ g).max()))
+            counts.append(k)
+    phase("extractor", f"rows: {counts} features; max | ||l[:2]|| - 1 | "
+          f"{worst_n:.2e} (tol 1e-6), max |l.g| on aligned lines "
+          f"{worst_g:.2e} (tol 1e-5)")
+    check(worst_n <= 1e-6 and worst_g <= 1e-5, "line rows out of tolerance")
+
+    for name in build.LAUNCHES:
+        build.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    good = ppsfm.main(["exhaustive_matcher", "--database_path", fresh,
+                       "--device", device.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    npairs = n * (n - 1) // 2
+    with Database(fresh) as db:
+        neighbours = [len(db.read_matches(a, b))
+                      for a, b in zip(ids[:-1], ids[1:])]
+    phase("extractor", f"exhaustive_matcher --device {device.type}: wall "
+          f"{wall:.3f} s, {npairs / wall:.1f} pairs/s, {good}/{npairs} "
+          f"pairs above threshold; neighbouring pairs' matches "
+          f"{neighbours}; launches {launches} | {card}")
+    check(launches["match_top2"] > 0, "match_top2 was not launched")
+    check(min(neighbours) >= 15, "a neighbouring pair is under "
+          "min_num_matches")
+    return launches["match_top2"]
+
+
 def device_split(name, card, run, kernel, top=6):
     """``run()`` under torch.profiler: wall, kernel time and busy share,
     ``kernel``'s share of kernel time and the ``top`` device events by
@@ -1292,6 +1646,13 @@ def main() -> int:
                 workdir)["match_top2"]
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
+            timed("sift", phase_sift, device, card, workdir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            extractor_launches = timed("extractor", phase_extractor, device,
+                                       card, workdir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
             timed("dense_implicit", phase_dense_implicit, device, card,
                   workdir)
     except Exception:  # every phase failure ends the run with no result
@@ -1310,7 +1671,8 @@ def main() -> int:
              **pcg_stats),
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",
-             launches=launches["match_top2"], **match_stats),
+             launches=launches["match_top2"],
+             extractor_launches=extractor_launches, **match_stats),
         dict(name="schur_gram_aos", route="cuda",
              source=src + "schur_gram.cu", replaces=f"{ref}:256",
              launches=launches["schur_gram_aos"], **gram_aos_stats),

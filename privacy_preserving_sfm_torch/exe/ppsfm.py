@@ -8,6 +8,13 @@ Ported subcommands, with the flags of the reference CLI
 * ``bundle_adjuster`` (reference ``:411-438, 623-627``), plus ``--dtype``
   (default float32, the precision of the accelerator path);
 * ``database_creator`` (``:25-30``);
+* ``feature_extractor`` (``:33-168, 564-573``): SIFT, the aligned split
+  and the line lift of every image with a gravity sidecar, written to the
+  database as descriptors, lines, aligned flags and gravity.  Images are
+  batched by (shape, camera model, number of params, mask); image k of
+  the sorted listing draws from a ``torch.Generator`` seeded from
+  (``--seed``, k), so a rerun with the same seed on the same device
+  writes the same bytes;
 * the matchers ``exhaustive_matcher``, ``sequential_matcher``,
   ``spatial_matcher``, ``transitive_matcher`` and ``matches_importer``
   (``--match_type pairs`` or ``raw``) (``:171-335, 560-606``), which read
@@ -75,6 +82,137 @@ def cmd_database_creator(args):
     with Database(args.database_path):
         pass
     print(f"Created database at {args.database_path}")
+
+
+_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
+
+
+def image_seed(seed: int, position: int) -> int:
+    """The generator seed of the image at ``position`` in the sorted
+    listing."""
+    return int(np.random.SeedSequence([seed, position]).generate_state(
+        1, np.uint64)[0])
+
+
+def cmd_feature_extractor(args):
+    from privacy_preserving_sfm_torch.features import extraction, sift
+    from privacy_preserving_sfm_torch.features.exif_focal import (
+        exif_focal_length,
+    )
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.ops.cameras import MODELS
+    from privacy_preserving_sfm_torch.utils.timer import Timer, print_heading1
+
+    device = _device(args.device)
+    print_heading1("Feature extraction")
+    timer = Timer()
+    names = sorted(n for n in os.listdir(args.image_path)
+                   if n.lower().endswith(_IMAGE_EXTS))
+    sift_opts = sift.SiftOptions(max_num_features=args.max_num_features)
+
+    with Database(args.database_path) as db:
+        existing = {v["name"]: k for k, v in db.read_images().items()}
+        camera_ids = {}
+        groups = {}  # (shape, model, n_params, has_mask) -> pending records
+        for idx, name in enumerate(names):
+            path = os.path.join(args.image_path, name)
+            cam_info = extraction.read_camera_model_file(path)
+            gravity = extraction.read_gravity_file(path)
+            if gravity is None:
+                print(f"  {name}: no .gravity.txt, skipping")
+                continue
+
+            img = extraction.load_image_grayscale_u8(path)
+            h, w = img.shape
+            prior_focal = True
+            if cam_info is None:
+                # No explicit calibration: the EXIF focal-length cascade
+                # (bitmap.cc:286-370 / image_reader.cc:117-139).
+                focal, prior_focal = exif_focal_length(path, w, h)
+                cam_info = ("SIMPLE_PINHOLE",
+                            np.array([focal, w / 2.0, h / 2.0]))
+                print(f"  {name}: focal from "
+                      f"{'EXIF' if prior_focal else 'heuristic'} "
+                      f"({focal:.1f} px)")
+            model, params = cam_info
+            if model not in MODELS:
+                raise ValueError(f"{name}: unknown camera model {model}")
+            img_r, scale = extraction.resize_to_max(img, args.max_image_size)
+            params_scaled = params.copy()
+            if scale != 1.0:
+                spec = MODELS[model]
+                for i in spec.focal_idxs + spec.principal_idxs:
+                    params_scaled[i] *= scale
+
+            cam_key = (model, tuple(params), w, h)
+            if cam_key not in camera_ids:
+                camera_ids[cam_key] = db.write_camera(
+                    model, w, h, params, prior_focal=prior_focal)
+            if name in existing:
+                iid = existing[name]
+            else:
+                # EXIF GPS (or a .gps.txt sidecar) -> image prior position
+                # (image_reader.cc:252-259).
+                iid = db.write_image(name, camera_ids[cam_key],
+                                     prior_t=extraction.read_exif_gps(path))
+            if db.exists_lines(iid) and db.exists_descriptors(iid):
+                continue
+
+            mask = extraction.read_mask(path)
+            if mask is not None:
+                mask = extraction.resize_mask(mask, img_r.shape)
+            gkey = (img_r.shape, model, len(params_scaled), mask is not None)
+            groups.setdefault(gkey, []).append(dict(
+                iid=iid, name=name, img=img_r, seed=image_seed(args.seed, idx),
+                model=model, params=np.asarray(params_scaled, np.float32),
+                gravity=gravity, mask=mask))
+            if len(groups[gkey]) >= args.batch_size:
+                _flush_extraction_batch(db, groups.pop(gkey), sift_opts,
+                                        args, device)
+        for batch in groups.values():
+            _flush_extraction_batch(db, batch, sift_opts, args, device)
+        db.commit()
+    if device.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    timer.print_minutes()
+
+
+def _flush_extraction_batch(db, batch, sift_opts, args, device):
+    """One batched front-end call for up to ``batch_size`` same-shape
+    images; a short tail is padded by repeating its last record and the
+    padded outputs are dropped."""
+    import time
+
+    from privacy_preserving_sfm_torch.features import extraction
+
+    t0 = time.perf_counter()
+    n = len(batch)
+    padded = batch + [batch[-1]] * (args.batch_size - n)
+
+    def stack(field, dtype=None):
+        return torch.from_numpy(np.stack([r[field] for r in padded])).to(
+            device=device, dtype=dtype)
+
+    masks = stack("mask") if batch[0]["mask"] is not None else None
+    generators = [torch.Generator(device).manual_seed(r["seed"])
+                  for r in padded]
+    lf = extraction.extract_and_lift_batch(
+        stack("img"), batch[0]["model"], stack("params"),
+        stack("gravity", torch.float32), generators, sift_opts,
+        args.aligned_line_ratio, masks)
+    valid, desc, lines, aligned = (t.cpu().numpy() for t in (
+        lf.valid, lf.descriptors, lf.lines, lf.aligned))
+    t1 = time.perf_counter()
+    for i, r in enumerate(batch):
+        v = valid[i]
+        db.write_descriptors(r["iid"], desc[i][v])
+        db.write_lines(r["iid"], lines[i][v], aligned[i][v])
+        db.write_gravity(r["iid"], r["gravity"])
+        print(f"  {r['name']}: {int(v.sum())} features "
+              f"({int(aligned[i][v].sum())} aligned)")
+    print(f"  [batch of {n}: device {t1 - t0:.2f}s, "
+          f"db {time.perf_counter() - t1:.2f}s]", flush=True)
 
 
 def _match_and_report(db, ids, pairs, args, device, what="pairs"):
@@ -266,6 +404,20 @@ def main(argv=None):
     p = sub.add_parser("database_creator")
     _add_db_arg(p)
     p.set_defaults(func=cmd_database_creator)
+
+    p = sub.add_parser("feature_extractor")
+    _add_db_arg(p)
+    p.add_argument("--image_path", required=True)
+    p.add_argument("--max_image_size", type=int, default=3200)
+    p.add_argument("--max_num_features", type=int, default=8192)
+    p.add_argument("--aligned_line_ratio", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="images per front-end call")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the front end: cuda (default) or "
+                   "cpu")
+    p.set_defaults(func=cmd_feature_extractor)
 
     for name in ("exhaustive_matcher", "sequential_matcher"):
         p = sub.add_parser(name)

@@ -1,6 +1,6 @@
-"""Camera model zoo: the forward projection ``WorldToImage`` of all 11 models.
+"""Camera model zoo: ``WorldToImage`` and ``ImageToWorld`` of all 11 models.
 
-Port of ``privacy_preserving_sfm_tpu/ops/cameras.py:178-277`` (reference
+Port of ``privacy_preserving_sfm_tpu/ops/cameras.py:139-345`` (reference
 ``src/base/camera_models.h:117-129``).  Parameter layouts are identical
 to the reference so text models interoperate:
 
@@ -22,8 +22,10 @@ and ``xp=numpy`` is the device-free numpy twin the host code uses
 (``ops/lines_np.py``).  The namespaces share every name used here
 (``sqrt``, ``arctan``, ``tan``, ``where``, ``stack(..., axis=)``,
 ``ones_like``, ``zeros_like``, ``finfo``); clamps use the ``.clip`` method
-both array types have.  ``image_to_world`` and its Newton undistortion
-belong to the front end and are not ported yet.
+both array types have.  ``image_to_world`` (torch only) inverts the
+distortion with a fixed 20-step Newton solve whose 2x2 Jacobian comes
+from two forward-mode ``torch.func.jvp`` evaluations, as the reference
+takes it from forward-mode autodiff.
 """
 
 from __future__ import annotations
@@ -132,6 +134,26 @@ def _distort_fov(p, u, v, xp=torch):
     )
     # NOTE: FOV "distortion" returns the distorted point directly (u*factor),
     # not a delta — mirrored in world_to_image_uv below.
+    return u * factor, v * factor
+
+
+def _undistort_fov(p, u, v, xp=torch):
+    omega = p[..., 0]
+    eps = 1e-4
+    radius2 = u * u + v * v
+    omega2 = omega * omega
+    tan_half = xp.tan(omega / 2)
+    radius = xp.sqrt(radius2.clip(min=xp.finfo(u.dtype).tiny))
+
+    factor_generic = xp.tan(radius * omega) / (radius * 2 * tan_half)
+    factor_small_omega = omega2 * radius2 / 3 - omega2 / 12 + 1
+    factor_small_radius = omega * (omega * omega * radius2 + 3) / (6 * tan_half)
+
+    factor = xp.where(
+        omega2 < eps,
+        factor_small_omega,
+        xp.where(radius2 < eps, factor_small_radius, factor_generic),
+    )
     return u * factor, v * factor
 
 
@@ -247,3 +269,71 @@ def world_to_image(model: str, params, uv, xp=torch):
     """
     x, y = world_to_image_uv(model, params, uv[..., 0], uv[..., 1], xp)
     return xp.stack([x, y], axis=-1)
+
+
+_NEWTON_ITERS = 20
+
+
+def _newton_undistort(distort_fn, extra: torch.Tensor,
+                      xy: torch.Tensor) -> torch.Tensor:
+    """Invert p -> p + distort(p) with a fixed ``_NEWTON_ITERS`` Newton loop
+    (reference ``camera_models.h:545-588``, which uses 100 central-difference
+    steps); the 2x2 Jacobian comes from two forward-mode evaluations."""
+
+    def residual(p):
+        du, dv = distort_fn(extra, p[..., 0], p[..., 1])
+        return p + torch.stack([du, dv], dim=-1) - xy
+
+    e0 = torch.zeros_like(xy)
+    e0[..., 0] = 1.0
+    e1 = torch.zeros_like(xy)
+    e1[..., 1] = 1.0
+    p = xy
+    for _ in range(_NEWTON_ITERS):
+        r, j0 = torch.func.jvp(residual, (p,), (e0,))
+        _, j1 = torch.func.jvp(residual, (p,), (e1,))
+        a, c = j0[..., 0], j0[..., 1]  # d r / d p0
+        b, d = j1[..., 0], j1[..., 1]  # d r / d p1
+        det = a * d - b * c
+        det = torch.where(torch.abs(det) < 1e-20, torch.ones_like(det), det)
+        step0 = (d * r[..., 0] - b * r[..., 1]) / det
+        step1 = (-c * r[..., 0] + a * r[..., 1]) / det
+        p = p - torch.stack([step0, step1], dim=-1)
+    return p
+
+
+def image_to_world(model: str, params: torch.Tensor,
+                   xy: torch.Tensor) -> torch.Tensor:
+    """Pixel coords (..., 2) -> normalized camera coords (..., 2).
+
+    Semantics of ``CameraModel::ImageToWorld`` for every model in the zoo.
+    """
+    spec = MODELS[model]
+    fx, fy, cx, cy, extra = _split_params(spec, params)
+    u = (xy[..., 0] - cx) / fx
+    v = (xy[..., 1] - cy) / fy
+
+    if spec.fov_style:
+        u, v = _undistort_fov(extra, u, v)
+        return torch.stack([u, v], dim=-1)
+
+    if spec.extra_idxs:
+        uv = _newton_undistort(spec.distort, extra,
+                               torch.stack([u, v], dim=-1))
+        u, v = uv[..., 0], uv[..., 1]
+
+    if spec.fisheye_pre:  # THIN_PRISM_FISHEYE: undo the theta pre-warp
+        eps = torch.finfo(xy.dtype).eps
+        theta = torch.sqrt(u * u + v * v)
+        tct = theta * torch.cos(theta)
+        scale = torch.where(tct > eps, torch.sin(theta) / tct.clamp(min=eps),
+                            torch.ones_like(theta))
+        u, v = u * scale, v * scale
+
+    return torch.stack([u, v], dim=-1)
+
+
+def mean_focal_length(model: str, params: torch.Tensor) -> torch.Tensor:
+    spec = MODELS[model]
+    f = torch.stack([params[..., i] for i in spec.focal_idxs], dim=-1)
+    return torch.mean(f, dim=-1)

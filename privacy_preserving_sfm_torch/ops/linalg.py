@@ -1,8 +1,8 @@
-"""Closed-form 3x3 kernels (batched torch), as BA needs them.
+"""Closed-form 3x3 kernels (batched torch), as BA and SIFT need them.
 
 Port of ``privacy_preserving_sfm_tpu/ops/linalg.py:20-83``: explicit
-cofactor forms and the closed-form Cholesky factor, broadcast over leading
-batch dimensions.
+cofactor forms, the adjugate solve and the closed-form Cholesky factor,
+broadcast over leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -31,6 +31,15 @@ def adjugate3(A: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return adj.reshape(A.shape)
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor, eps: float = 1e-30
+           ) -> torch.Tensor:
+    """Solve 3x3 systems A x = b via the adjugate. (..., 3, 3), (..., 3)."""
+    det = det3(A)
+    e = det.new_full((), eps)
+    det = torch.where(det.abs() < eps, torch.where(det < 0, -e, e), det)
+    return torch.sum(adjugate3(A) * b[..., None, :], dim=-1) / det[..., None]
 
 
 def inv3(A: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Point-to-line residual of the line bundle adjustment (torch).
+"""Feature-line lifting and the point-to-line residual of the line BA (torch).
 
-Port of ``privacy_preserving_sfm_tpu/ops/lines.py:86-95, 161-185``.  The
+Port of ``privacy_preserving_sfm_tpu/ops/lines.py:32-95, 161-185``.  The
 privacy-preserving representation stores, per keypoint, a 2D line through
 the normalized image point, normalized so that ``||l[:2]|| = 1`` and
-``l . p_hom`` is a signed point-to-line distance.  BA cost: reference
+``l . p_hom`` is a signed point-to-line distance: ``l = g x x_hat`` for a
+gravity-aligned line, ``l = r x x_hat`` for a random direction ``r``
+(reference ``src/feature/extraction.cc:437-504``).  BA cost: reference
 ``src/base/cost_functions.h:62-100``.
 """
 
@@ -13,6 +15,48 @@ import torch
 
 from privacy_preserving_sfm_torch.ops import cameras as cam_ops
 from privacy_preserving_sfm_torch.ops import lie
+
+
+def normalize_lines(lines: torch.Tensor) -> torch.Tensor:
+    """Normalize homogeneous 2D lines so ||(a, b)|| = 1. (..., 3)->(..., 3).
+
+    Mirrors ``extraction.cc:499-503`` and the DB read path
+    ``database.cc:55-74``.
+    """
+    n = torch.sqrt(torch.sum(lines[..., :2] * lines[..., :2], dim=-1,
+                             keepdim=True))
+    return lines / torch.clamp(n, min=1e-12)
+
+
+def lift_with_directions(normalized_points: torch.Tensor,
+                         gravity: torch.Tensor, aligned_mask: torch.Tensor,
+                         rnd: torch.Tensor) -> torch.Tensor:
+    """Lines through normalized points (..., N, 2): ``g x x_hom`` where
+    ``aligned_mask`` (..., N) is True, else ``r x x_hom`` with ``r`` the
+    row of ``rnd`` (..., N, 3) (standard normal draws) made unit length.
+    ``gravity`` is (..., 3).  Returns (..., N, 3) with ||l[:2]|| = 1."""
+    x_hom = torch.cat([normalized_points,
+                       torch.ones_like(normalized_points[..., :1])], dim=-1)
+    rnd = rnd / torch.sqrt(torch.sum(rnd * rnd, dim=-1, keepdim=True))
+    g = gravity.to(normalized_points.dtype)[..., None, :].expand_as(x_hom)
+    direction = torch.where(aligned_mask[..., None], g, rnd)
+    return normalize_lines(torch.linalg.cross(direction, x_hom, dim=-1))
+
+
+def lift_keypoints_to_lines(normalized_points: torch.Tensor,
+                            gravity: torch.Tensor,
+                            aligned_mask: torch.Tensor,
+                            generator: torch.Generator) -> torch.Tensor:
+    """Lift normalized image points (..., N, 2) to privacy-preserving lines.
+
+    Semantics of ``LineFeatureWriterThread`` (``extraction.cc:476-504``);
+    the random directions are standard normal draws from ``generator``,
+    which must live on the points' device.
+    """
+    rnd = torch.randn(normalized_points.shape[:-1] + (3,),
+                      generator=generator, dtype=normalized_points.dtype,
+                      device=normalized_points.device)
+    return lift_with_directions(normalized_points, gravity, aligned_mask, rnd)
 
 
 def closest_point_on_line(lines: torch.Tensor,

@@ -1,9 +1,11 @@
 """Seeded synthetic data for tests and the chip smoke run.
 
-Two builders, numpy only, so both the reference package and the port can
-read what they write: ``synthetic_model`` (a line-BA model, text format)
-and ``synthetic_matching_database`` (a matcher database with known
-correspondences, SQLite).
+Three builders, numpy only, so both the reference package and the port can
+read what they write: ``synthetic_model`` (a line-BA model, text format),
+``synthetic_matching_database`` (a matcher database with known
+correspondences, SQLite) and ``render_dataset`` (rendered images with
+gravity and calibration sidecars, the two scene kinds of
+``tools/synth_dataset.py``).
 
 ``synthetic_model`` builds a reconstruction in the layout of the line
 bundle-adjustment benchmark (``bench.py:28-81``): cameras spread along a
@@ -28,6 +30,7 @@ from privacy_preserving_sfm_torch.models.reconstruction import (
     Camera, Image, Reconstruction,
 )
 from privacy_preserving_sfm_torch.ops import lie_np
+from privacy_preserving_sfm_torch.utils import png
 
 
 # SIMPLE_PINHOLE (f, cx, cy), image size, and the benchmark's start
@@ -223,3 +226,208 @@ def match_quality(db: Database, scene: MatchingScene
     total = sum(len(t) for t in scene.true_matches.values())
     return (correct / stored if stored else 0.0,
             correct / total if total else 0.0, stored)
+
+
+# ---------------------------------------------------------------------------
+# Rendered image datasets
+# ---------------------------------------------------------------------------
+
+# Facets of the "box" scene (``tools/synth_dataset.py:51-60``): (origin O,
+# edge A, edge B), world points X(u, v) = O + u A + v B, (u, v) in
+# [-1, 1]^2.  A back wall, a tilted floor, a slanted side wall and a
+# floating billboard: no single homography explains any image pair.
+BOX_FACETS = (
+    (np.array([0.0, 0.0, 6.5]),
+     np.array([3.2, 0.0, 0.7]), np.array([0.0, 2.4, 0.5])),
+    (np.array([0.0, 1.6, 4.6]),
+     np.array([2.8, 0.12, 0.0]), np.array([0.0, 0.55, 2.2])),
+    (np.array([-2.4, 0.0, 4.8]),
+     np.array([0.9, 0.05, 1.6]), np.array([0.1, 1.9, 0.0])),
+    (np.array([1.5, -0.5, 4.1]),
+     np.array([0.9, 0.0, 0.35]), np.array([0.0, 0.8, 0.2])),
+)
+# The textured plane X(u, v) = (u, v, z0 + ax u + ay v), (u, v) in [-S, S]^2.
+PLANE = dict(plane_S=3.0, plane_z0=5.0, plane_ax=0.5, plane_ay=0.35)
+
+
+def _cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of a cubic resize (Keys, a = -0.75, pixel
+    centres aligned, edges replicated), as OpenCV's INTER_CUBIC."""
+    a = -0.75
+    src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    t = src - i0
+    out = np.zeros((n_out, n_in))
+    for k in range(-1, 3):
+        d = np.abs(t - k)
+        w = np.where(d <= 1, ((a + 2) * d - (a + 3)) * d * d + 1,
+                     np.where(d < 2, ((a * d - 5 * a) * d + 8 * a) * d - 4 * a,
+                              0.0))
+        np.add.at(out, (np.arange(n_out), np.clip(i0 + k, 0, n_in - 1)), w)
+    return out
+
+
+def _resize_cubic(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape
+    return _cubic_matrix(h, size) @ img @ _cubic_matrix(w, size).T
+
+
+def make_texture(rng: np.random.Generator, size: int) -> np.ndarray:
+    """High-contrast smooth random texture (size, size) uint8: a random
+    grid at 1/8 of the size plus half of one at 1/32, cubic-upsampled."""
+    tex = _resize_cubic(rng.uniform(0, 1, (size // 8, size // 8)), size)
+    tex += 0.5 * _resize_cubic(rng.uniform(0, 1, (size // 32, size // 32)),
+                               size)
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    return (tex * 255).astype(np.uint8)
+
+
+def _bilinear(tex: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Bilinear samples of ``tex`` at float pixel coords, edges replicated."""
+    h, w = tex.shape
+    x = np.clip(x, 0, w - 1)
+    y = np.clip(y, 0, h - 1)
+    x0 = np.minimum(np.floor(x).astype(np.int64), w - 2)
+    y0 = np.minimum(np.floor(y).astype(np.int64), h - 2)
+    fx, fy = x - x0, y - y0
+    t = tex.astype(np.float32)
+    return ((t[y0, x0] * (1 - fx) + t[y0, x0 + 1] * fx) * (1 - fy)
+            + (t[y0 + 1, x0] * (1 - fx) + t[y0 + 1, x0 + 1] * fx) * fy)
+
+
+def _to_u8(v: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(v), 0, 255).astype(np.uint8)
+
+
+def _pixel_grid(width: int, height: int) -> np.ndarray:
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    return np.stack([xs, ys, np.ones_like(xs)])  # (3, H, W)
+
+
+def plane_homography(meta: dict, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Texture pixel -> image pixel homography of a plane view
+    (``tools/frontend_eval.py:32-41``): H = K (R M + t e3^T) T."""
+    f, w, h = meta["f"], meta["width"], meta["height"]
+    S, z0 = meta["plane_S"], meta["plane_z0"]
+    tex = meta["tex_size"]
+    M = np.array([[1.0, 0, 0], [0, 1.0, 0],
+                  [meta["plane_ax"], meta["plane_ay"], z0]])
+    T = np.array([[2 * S / tex, 0, -S], [0, 2 * S / tex, -S], [0, 0, 1.0]])
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    return K @ (R @ M + t[:, None] @ np.array([[0.0, 0.0, 1.0]])) @ T
+
+
+def _render_plane(H: np.ndarray, tex: np.ndarray, width: int, height: int):
+    """Warp the texture into the image through H (texture -> image),
+    edges replicated (``cv2.warpPerspective`` with BORDER_REPLICATE)."""
+    uvw = np.einsum("ij,jhw->ihw", np.linalg.inv(H), _pixel_grid(width,
+                                                                  height))
+    return _to_u8(_bilinear(tex, uvw[0] / uvw[2], uvw[1] / uvw[2]))
+
+
+def _render_box(K, R, t, textures, width: int, height: int):
+    """Composite the BOX_FACETS by nearest positive depth on a featureless
+    background (``tools/synth_dataset.py:84-116``)."""
+    pix = _pixel_grid(width, height)
+    img = np.full((height, width), 96, np.uint8)
+    zbuf = np.full((height, width), np.inf)
+    for (O, A, B), tex in zip(BOX_FACETS, textures):
+        ts = tex.shape[0]
+        Hm = K @ np.column_stack([R @ A, R @ B, R @ O + t])
+        uvw = np.tensordot(np.linalg.inv(Hm), pix, axes=1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = uvw[0] / uvw[2]
+            v = uvw[1] / uvw[2]
+        depth = (R[2] @ O + t[2]) + u * (R[2] @ A) + v * (R[2] @ B)
+        win = ((np.abs(u) <= 1) & (np.abs(v) <= 1) & (depth > 0.1)
+               & (depth < zbuf))
+        img[win] = _to_u8(_bilinear(tex, (u[win] + 1) * 0.5 * (ts - 1),
+                                    (v[win] + 1) * 0.5 * (ts - 1)))
+        zbuf[win] = depth[win]
+    return img
+
+
+def _quat_multiply(q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
+    w1, x1, y1, z1 = q1
+    w2, x2, y2, z2 = q2
+    return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def render_dataset(outdir: str, num_images: int, width: int = 640,
+                   height: int = 480, f: float = 0.0, seed: int = 0,
+                   scene: str = "plane") -> dict:
+    """Render a seeded multi-view dataset of ``scene`` ("plane" or "box")
+    with a SIMPLE_PINHOLE camera (f defaults to 0.625 x width, the
+    field of view of ``tools/synth_dataset.py``'s 400 px at 640 px).
+
+    Writes, in the reference's dataset layout (``image_reader.cc:206-247``),
+    ``img%03d.png`` (8-bit grayscale, ``utils/png.py``) with its
+    ``.gravity.txt`` and ``.camera_model.txt``; ``gt_poses.txt`` (name, qw
+    qx qy qz, tx ty tz, world -> camera); and ``meta.json``, from which
+    ``plane_homography`` rebuilds each plane view's homography.  Cameras
+    sit on an arc aimed at the scene centre, as in
+    ``tools/synth_dataset.py``; textures are cubic-upsampled random grids
+    and views are bilinear warps, so the images differ from that tool's
+    (OpenCV) renders in detail, not in kind.  Returns the metadata with
+    ``poses`` {name: (R, t)}.
+    """
+    import json
+    import os
+
+    f = f or 0.625 * width
+    rng = np.random.default_rng(seed)
+    os.makedirs(outdir, exist_ok=True)
+    # Texture sizes of tools/synth_dataset.py at 640 px, scaled with width.
+    tex_size = int(round(1600 * width / 640))
+    if scene == "plane":
+        tex = make_texture(rng, tex_size)
+    elif scene == "box":
+        box_tex = [make_texture(rng, tex_size // 2) for _ in BOX_FACETS]
+    else:
+        raise ValueError(f"unknown scene {scene!r}")
+    meta = dict(f=f, width=width, height=height, scene=scene,
+                camera="SIMPLE_PINHOLE",
+                camera_params=[f, width / 2, height / 2],
+                tex_size=tex_size, **PLANE)
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+    z0, spread = PLANE["plane_z0"], 10.0
+    poses, gt_lines = {}, []
+    for i in range(num_images):
+        frac = i / max(1, num_images - 1)
+        C = np.array([spread * (frac - 0.5),
+                      rng.uniform(-0.15, 0.15), rng.uniform(-0.3, 0.3)])
+        yaw = np.arctan2(C[0], z0)  # aim the optical axis at (0, 0, z0)
+        q_yaw = np.array([np.cos(yaw / 2), 0, np.sin(yaw / 2), 0])
+        ax = rng.standard_normal(3) * 0.03
+        ang = np.linalg.norm(ax) + 1e-12
+        q_tilt = np.concatenate([[np.cos(ang / 2)],
+                                 np.sin(ang / 2) * ax / ang])
+        q = _quat_multiply(q_tilt, q_yaw)
+        R = lie_np.quat_to_rotmat(q)
+        t = -R @ C
+        name = f"img{i:03d}.png"
+        if scene == "box":
+            img = _render_box(K, R, t, box_tex, width, height)
+        else:
+            img = _render_plane(plane_homography(meta, R, t), tex, width,
+                                height)
+        path = os.path.join(outdir, name)
+        png.write_png_gray(path, img)
+        g = R @ np.array([0.0, 1.0, 0.0])
+        with open(path + ".gravity.txt", "w") as fo:
+            fo.write(" ".join(repr(float(v)) for v in g) + "\n")
+        with open(path + ".camera_model.txt", "w") as fo:
+            fo.write("SIMPLE_PINHOLE, " + ", ".join(
+                repr(float(p)) for p in meta["camera_params"]) + "\n")
+        poses[name] = (R, t)
+        gt_lines.append(f"{name} " + " ".join(repr(float(v)) for v in q)
+                        + " " + " ".join(repr(float(v)) for v in t))
+    with open(os.path.join(outdir, "gt_poses.txt"), "w") as fo:
+        fo.write("# name qw qx qy qz tx ty tz\n" + "\n".join(gt_lines)
+                 + "\n")
+    with open(os.path.join(outdir, "meta.json"), "w") as fo:
+        json.dump(meta, fo)
+    return dict(meta, poses=poses)

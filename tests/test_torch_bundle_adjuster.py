@@ -10,6 +10,7 @@ solver (no override: both packages take it on the CPU).  The two output
 models agree to 1e-6.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -103,6 +104,7 @@ def test_cuda_device_without_gpu_is_an_error(model_dir, monkeypatch):
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
+        "import chip_smoke\n"
         "import privacy_preserving_sfm_torch\n"
         "from privacy_preserving_sfm_torch.exe import ppsfm\n"
         "from privacy_preserving_sfm_torch.kernels import build\n"
@@ -115,6 +117,16 @@ def test_port_imports_without_jax():
         "    matching, matching_kernels, schedulers)\n"
         "from privacy_preserving_sfm_torch.models import database\n"
         "from privacy_preserving_sfm_torch.utils import gps\n"
+        "from privacy_preserving_sfm_torch.features import (\n"
+        "    exif_focal, extraction, sensor_db, sift)\n"
+        "from privacy_preserving_sfm_torch.ops import cameras, lines\n"
+        "from privacy_preserving_sfm_torch.utils import png\n"
+        "import tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "synthetic.render_dataset(d + '/im', 1, 96, 64)\n"
+        "ppsfm.main(['feature_extractor', '--database_path', d + '/t.db',\n"
+        "            '--image_path', d + '/im', '--device', 'cpu',\n"
+        "            '--max_num_features', '64'])\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"
@@ -134,6 +146,20 @@ def test_port_sources_name_no_jax():
                     text = f.read().lower()
                 for banned in ("jax", "jnp", "pallas"):
                     assert banned not in text, (name, banned)
+    # chip_smoke.py names the reference's files in its kernels line, but
+    # imports nothing of JAX or the reference package, at any depth.
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in (
+                "jax", "jaxlib", "privacy_preserving_sfm_tpu"), n
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):
