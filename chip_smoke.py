@@ -26,8 +26,12 @@ against bars from the reference package, one image at the default cap);
 and ``feature_extractor`` with its defaults on 16 rendered 1,600 x 1,200
 box images, in a fresh process with torch's default flags and again in
 this one (byte-identical rows required), then ``exhaustive_matcher`` on
-its database (phase ``extractor``).  Prints one line per phase and each
-phase's
+its database (phase ``extractor``); and ``line_initializer`` on that
+database (phase ``line_init``): twice on the card (byte-identical models,
+4 images, at least ``MIN_INIT_POINTS`` points, poses within
+``LINE_INIT_BAR`` of the rendering's truth), once on the CPU (the same
+images, within the bar) and once under torch.profiler.  Prints one line
+per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
 its bytes at the memory rate), the card's name and power limit, and as
@@ -40,6 +44,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -124,6 +129,13 @@ SIFT_PAIRS = [("img000.png", "img002.png"), ("img002.png", "img004.png"),
               ("img004.png", "img006.png")]
 SIFT_TOL = 3.0
 MIN_REPEATABILITY, MIN_INLIER_RATE = 0.60, 0.76
+# line_initializer on the extractor's database: the least number of
+# triangulated points, and the bar on the 4 poses against the rendering's
+# truth up to gauge (rotation, translation direction; degrees): twice the
+# reference CLI's errors on a database the port's CLI wrote from the same
+# rendering (tests/torch_init_bar.py, on a CPU), floored at 0.25 and 1.
+MIN_INIT_POINTS = 100
+LINE_INIT_BAR = (0.25, 1.0)
 
 
 def check(ok, msg):
@@ -1273,10 +1285,10 @@ def match_keypoints(ka, kb, tol_px, tol_scale):
     return out
 
 
-def span_split(name, card, run):
+def span_split(name, card, run, prefixes=("sift.", "extraction.")):
     """``run()`` once under torch.profiler: the device's busy share, and
-    each ``sift.*`` / ``extraction.*`` span's host time and the device time
-    of the kernels launched inside it."""
+    each span's (named with one of ``prefixes``) host time and the device
+    time of the kernels launched inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1295,8 +1307,7 @@ def span_split(name, card, run):
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     spans = {}
     for e in prof.events():
-        if e.device_type != cpu or not e.name.startswith(("sift.",
-                                                          "extraction.")):
+        if e.device_type != cpu or not e.name.startswith(prefixes):
             continue
         dev, todo = 0.0, list(e.cpu_children)
         while todo:
@@ -1580,6 +1591,217 @@ def phase_extractor(device, card, workdir):
     return launches["match_top2"]
 
 
+def _model_bytes(path):
+    out = {}
+    for name in ("cameras.txt", "images.txt", "points3D.txt"):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def init_errors(out_dir, gt):
+    """The model written to ``out_dir``: (model, registered names, rotation
+    and translation-direction errors in degrees against ``gt``, up to
+    gauge)."""
+    import numpy as np
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        gauge_align_errors,
+    )
+
+    rec = Reconstruction.read_text(out_dir)
+    names = [rec.images[i].name for i in rec.reg_image_ids]
+    check(len(names) == 4, f"{len(names)} images registered, not 4")
+    poses = np.stack([rec.images[i].projection_matrix()
+                      for i in rec.reg_image_ids])
+    rot, dirn = gauge_align_errors(np.stack([gt[n][0] for n in names]),
+                                   np.stack([gt[n][1] for n in names]),
+                                   poses)
+    return rec, names, float(np.degrees(rot)), float(np.degrees(dirn))
+
+
+@contextlib.contextmanager
+def init_stage_peaks(record):
+    """Inside it, each of the mapper's three init stages resets the card's
+    peak memory when it starts and keeps its own peak (bytes) in
+    ``record`` under its span's name; ``record["sets"]`` is the last
+    candidate sets the initializer solved."""
+    import torch
+
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+
+    spans = {"assemble_init_sets": "init.assemble",
+             "solve_init_sets": "init.solve",
+             "register_initial_poses": "init.triangulate"}
+    saved = {k: getattr(IncrementalMapper, k) for k in spans}
+
+    def wrap(name, fn):
+        def stage(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record[spans[name]] = max(record.get(spans[name], 0),
+                                      torch.cuda.max_memory_allocated())
+            if name == "solve_init_sets":
+                record["sets"] = args[0]
+            return out
+        return stage
+
+    for name, fn in saved.items():
+        setattr(IncrementalMapper, name, wrap(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(IncrementalMapper, name, fn)
+
+
+def init_chunk_numbers(device, sets, num_samples):
+    """The numbers per entry that the initializer's two chunk bodies
+    (``_score_models``, ``_score_offsets``) hold at their peak on the card,
+    float32, at the set and track counts of ``sets`` and the chunk sizes
+    the initializer takes for them: (four-view numbers, offset numbers,
+    models a four-view chunk, hypotheses an offset chunk)."""
+    import torch
+
+    from privacy_preserving_sfm_torch.init import initializer as ti
+
+    s, _, n, _ = sets.aligned.shape
+    m = sets.random.shape[2]
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, dtype=torch.float64).to(
+            device=device, dtype=torch.float32)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bool, device=device)
+
+    def peak_numbers(fn, entries):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated() - base
+        del out
+        return used / (entries * 4)
+
+    k = 16 * ti._chunk(num_samples, s * 16 * n, 4, ti.FOURVIEW_NUMBERS)
+    cams, x_all, thresh = rand(s, k, 4, 2, 3), rand(s, 4, n, 2), rand(s)
+    four = peak_numbers(lambda: ti._score_models(
+        cams, x_all, thresh, ones(s, n), ones(s, k)), s * k * n)
+    del cams, x_all
+    c = ti._chunk(num_samples, s * m, 4, ti.OFFSET_NUMBERS)
+    poses, rg, lines = rand(s, 4, 3, 4), rand(s, 4, 3, 3), rand(s, 4, m, 3)
+    idx = torch.randint(0, m, (s, c, 3), generator=gen).to(device)
+    off = peak_numbers(lambda: ti._score_offsets(
+        poses, rg, lines, ones(s, m), thresh, idx), s * c * m)
+    return four, off, k, c
+
+
+def phase_line_init(device, card, workdir, db):
+    """``line_initializer`` on phase ``extractor``'s database: twice on the
+    card (4 images, >= MIN_INIT_POINTS points, byte-identical models, the
+    poses within LINE_INIT_BAR of the rendering's truth, the peak memory of
+    each ``init.*`` stage, and the numbers per entry of the initializer's
+    chunk bodies held to the constants that size the chunks), once on the
+    CPU (the same images, within the bar), and once more on the card under
+    torch.profiler, split by the mapper's ``init.*`` spans."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.init import initializer as ti
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        MapperOptions,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import read_gt_poses
+
+    gt = read_gt_poses(os.path.join(workdir, "images", "gt_poses.txt"))
+    stages = {}
+
+    def run(dev, out):
+        on_card = dev.type == "cuda"
+        stages.clear()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with (init_stage_peaks(stages) if on_card
+              else contextlib.nullcontext()):
+            mapper = ppsfm.main(["line_initializer", "--database_path", db,
+                                 "--output_path", out, "--device", dev.type])
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(mapper.device.type == dev.type
+              and mapper.triangulator.device.type == dev.type,
+              f"line_initializer ran on {mapper.device}, not {dev.type}")
+        times = ", ".join(f"{k} {v:.3f} s" for k, v in
+                          list(mapper.phase_times.items())
+                          + list(mapper.triangulator.phase_times.items()))
+        peak = "n/a"
+        if on_card:
+            each = {k: v for k, v in stages.items() if k.startswith("init.")}
+            top = max(each, key=each.get)
+            peak = (f"{max(each.values()) / 2**20:.1f} MiB, set by {top} ("
+                    + ", ".join(f"{k} {v / 2**20:.1f} MiB"
+                                for k, v in each.items()) + ")")
+        return wall, times, peak
+
+    outs = [os.path.join(workdir, f"init_card{k}") for k in range(2)]
+    walls = []
+    for out in outs:
+        wall, times, peak = run(device, out)
+        walls.append(wall)
+        rec, names, rot, dirn = init_errors(out, gt)
+        phase("line_init", f"line_initializer --device {device.type}: wall "
+              f"{wall:.3f} s ({times}), peak device memory {peak}; images "
+              f"{names}, {len(rec.points3d)} points; rotation error "
+              f"{rot:.4f} deg, translation direction error {dirn:.4f} deg "
+              f"(bar {LINE_INIT_BAR[0]} and {LINE_INIT_BAR[1]} deg) | {card}")
+        check(len(rec.points3d) >= MIN_INIT_POINTS,
+              f"{len(rec.points3d)} points, under {MIN_INIT_POINTS}")
+        check(rot <= LINE_INIT_BAR[0] and dirn <= LINE_INIT_BAR[1],
+              "the card's poses miss the bar")
+    same = _model_bytes(outs[0]) == _model_bytes(outs[1])
+    phase("line_init", f"two card runs byte-identical={same}")
+    check(same, "two card runs wrote different models")
+    if device.type == "cuda":
+        sets = stages["sets"]
+        four, off, k, c = init_chunk_numbers(
+            device, sets, MapperOptions().init_num_samples)
+        phase("line_init", f"chunk bodies at S={sets.aligned.shape[0]}, "
+              f"N={sets.aligned.shape[2]}, M={sets.random.shape[2]}: "
+              f"_score_models {four:.2f} numbers an entry at {k} models "
+              f"(FOURVIEW_NUMBERS {ti.FOURVIEW_NUMBERS}), _score_offsets "
+              f"{off:.2f} at {c} hypotheses (OFFSET_NUMBERS "
+              f"{ti.OFFSET_NUMBERS}) | {card}")
+        check(four <= ti.FOURVIEW_NUMBERS and off <= ti.OFFSET_NUMBERS,
+              "a chunk body holds more than its constant sizes it for")
+
+    out = os.path.join(workdir, "init_cpu")
+    wall, times, _ = run(torch.device("cpu"), out)
+    rec_c, names_c, rot_c, dir_c = init_errors(out, gt)
+    phase("line_init", f"line_initializer --device cpu: wall {wall:.3f} s "
+          f"({times}); images {names_c}, {len(rec_c.points3d)} points; "
+          f"rotation error {rot_c:.4f} deg, translation direction error "
+          f"{dir_c:.4f} deg | {card}")
+    check(names_c == names, "the CPU registered another image set")
+    check(rot_c <= LINE_INIT_BAR[0] and dir_c <= LINE_INIT_BAR[1],
+          "the CPU's poses miss the bar")
+
+    span_split("line_init", card, lambda: run(
+        device, os.path.join(workdir, "init_profiled")), prefixes=("init.",))
+    return walls
+
+
 def device_split(name, card, run, kernel, top=6):
     """``run()`` under torch.profiler: wall, kernel time and busy share,
     ``kernel``'s share of kernel time and the ``top`` device events by
@@ -1651,6 +1873,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             extractor_launches = timed("extractor", phase_extractor, device,
                                        card, workdir)
+            torch.cuda.empty_cache()
+            timed("line_init", phase_line_init, device, card, workdir,
+                  os.path.join(workdir, "fresh.db"))
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("dense_implicit", phase_dense_implicit, device, card,

@@ -18,7 +18,11 @@ Ported subcommands, with the flags of the reference CLI
 * the matchers ``exhaustive_matcher``, ``sequential_matcher``,
   ``spatial_matcher``, ``transitive_matcher`` and ``matches_importer``
   (``--match_type pairs`` or ``raw``) (``:171-335, 560-606``), which read
-  descriptors from the database and write matches back.
+  descriptors from the database and write matches back;
+* ``line_initializer`` (``:453-473, 636-639``): the mapper's 4-view
+  initialization on the database (``min_num_matches`` 4), written as a
+  text model; it computes in float32 on either device, as the reference
+  does on its accelerator.
 
 Device work runs on ``--device`` (default ``cuda``; asking for CUDA
 without a CUDA device is an error, never a silent CPU run).
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 import torch
@@ -72,6 +77,46 @@ def cmd_bundle_adjuster(args):
               f"cost {s.initial_cost!r} -> {s.final_cost!r}")
     print(f"  mean reproj error: "
           f"{rec.compute_mean_reprojection_error():.4f}px")
+    timer.print_minutes()
+    return mapper
+
+
+def cmd_line_initializer(args):
+    """Standalone 4-view initialization (reference ``ppsfm.cc:510-960``).
+    Prints the registered image ids, the number of points, the graph
+    kind, the phase times and, on CUDA, the peak device memory."""
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.models.database_cache import (
+        DatabaseCache,
+    )
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper, MapperOptions,
+    )
+    from privacy_preserving_sfm_torch.utils.timer import Timer, print_heading1
+
+    device = _device(args.device)
+    print_heading1("Line initializer")
+    timer = Timer()
+    with Database(args.database_path) as db:
+        cache = DatabaseCache.load(db, min_num_matches=4)
+    rec = cache.to_reconstruction()
+    mapper = IncrementalMapper(device, torch.float32, cache)
+    mapper.begin_reconstruction(rec)
+    ok = mapper.register_initial_line_images(MapperOptions(), cache)
+    times = " ".join(f"{k}={v:.3f}s" for k, v in
+                     list(mapper.phase_times.items())
+                     + list(mapper.triangulator.phase_times.items()))
+    print(f"  graph={cache.graph_kind} device={device} phase times: {times}")
+    if device.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    if not ok:
+        print("Initialization failed")
+        sys.exit(1)
+    os.makedirs(args.output_path, exist_ok=True)
+    rec.write_text(args.output_path)
+    print(f"Initialized with images {rec.reg_image_ids} "
+          f"({len(rec.points3d)} points)")
     timer.print_minutes()
     return mapper
 
@@ -464,6 +509,14 @@ def main(argv=None):
                    help="torch device of the solve: cuda (default) or cpu")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
     p.set_defaults(func=cmd_bundle_adjuster)
+
+    p = sub.add_parser("line_initializer")
+    _add_db_arg(p)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the initializer and the "
+                   "triangulation: cuda (default) or cpu")
+    p.set_defaults(func=cmd_line_initializer)
 
     args = parser.parse_args(argv)
     return args.func(args)

@@ -1,10 +1,12 @@
 """Reconstruction data model (cameras, images with lines, 3D points, tracks).
 
 Numpy host code carried over from
-``privacy_preserving_sfm_torch/models/reconstruction.py`` (verbatim where
-possible), with what the ``bundle_adjuster`` slice uses: the containers,
-bookkeeping, the reference-compatible text model IO, the negative-depth
-filter, ``normalize``/``transform`` and the batched squared line error.
+``privacy_preserving_sfm_tpu/models/reconstruction.py`` (verbatim where
+possible), with what the ``bundle_adjuster`` and ``line_initializer``
+slices use: the containers, bookkeeping (registration, deregistration,
+point merges), the reference-compatible text model IO, the
+negative-depth filter, ``normalize``/``transform`` and the batched squared
+line error.
 Mirror of the reference's ``src/base/reconstruction.{h,cc}``,
 ``image.{h,cc}``, ``point3d.h`` and ``track.h``.
 """
@@ -16,6 +18,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from privacy_preserving_sfm_torch.ops.cameras import MODELS
 
 _INVALID = -1
 
@@ -31,6 +35,13 @@ class Camera:
     # the max-dim heuristic (``cameras.prior_focal_length`` DB column);
     # prior-less cameras are eligible for focal search at registration.
     prior_focal_length: bool = True
+
+    def mean_focal_length(self) -> float:
+        spec = MODELS[self.model]
+        return float(np.mean([self.params[i] for i in spec.focal_idxs]))
+
+    def image_to_world_threshold(self, threshold: float) -> float:
+        return threshold / self.mean_focal_length()
 
 
 @dataclasses.dataclass
@@ -128,6 +139,16 @@ class Reconstruction:
             img.registered = True
             self.reg_image_ids.append(image_id)
 
+    def deregister_image(self, image_id: int):
+        """Remove all observations of the image and unregister it
+        (``reconstruction.cc`` DeRegisterImage semantics)."""
+        img = self.images[image_id]
+        for line_idx in np.nonzero(img.point3d_ids != _INVALID)[0]:
+            self.delete_observation(image_id, int(line_idx))
+        img.registered = False
+        if image_id in self.reg_image_ids:
+            self.reg_image_ids.remove(image_id)
+
     def num_registered(self) -> int:
         return len(self.reg_image_ids)
 
@@ -169,6 +190,26 @@ class Reconstruction:
             return
         for image_id, line_idx in pt.track:
             self.images[image_id].point3d_ids[line_idx] = _INVALID
+
+    def merge_points3d(self, pid1: int, pid2: int) -> int:
+        """Track-length weighted centroid merge (``reconstruction.cc``
+        MergePoints3D)."""
+        p1, p2 = self.points3d[pid1], self.points3d[pid2]
+        n1, n2 = len(p1.track), len(p2.track)
+        xyz = (n1 * p1.xyz + n2 * p2.xyz) / (n1 + n2)
+        track = list(p1.track) + list(p2.track)
+        for image_id, line_idx in p1.track:
+            self.images[image_id].point3d_ids[line_idx] = _INVALID
+        for image_id, line_idx in p2.track:
+            self.images[image_id].point3d_ids[line_idx] = _INVALID
+        del self.points3d[pid1]
+        del self.points3d[pid2]
+        pid = self._next_point_id
+        self._next_point_id += 1
+        self.points3d[pid] = Point3D(xyz=xyz, track=track)
+        for image_id, line_idx in track:
+            self.images[image_id].point3d_ids[line_idx] = pid
+        return pid
 
     def batch_squared_line_errors(self, obs_img: np.ndarray,
                                   obs_li: np.ndarray,

@@ -337,3 +337,11 @@ def mean_focal_length(model: str, params: torch.Tensor) -> torch.Tensor:
     spec = MODELS[model]
     f = torch.stack([params[..., i] for i in spec.focal_idxs], dim=-1)
     return torch.mean(f, dim=-1)
+
+
+def image_to_world_threshold(model: str, params: torch.Tensor,
+                             threshold) -> torch.Tensor:
+    """Pixel-space threshold -> normalized-plane threshold: divided by the
+    mean focal length (``BaseCameraModel::ImageToWorldThreshold``,
+    ``camera_models.h:533-543``)."""
+    return threshold / mean_focal_length(model, params)

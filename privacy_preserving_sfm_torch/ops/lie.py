@@ -1,4 +1,4 @@
-"""Quaternion utilities used by bundle adjustment (batched torch).
+"""Quaternion and rotation utilities (batched torch).
 
 Conventions match ``privacy_preserving_sfm_tpu/ops/lie.py`` and the
 reference (``src/base/pose.cc:34-127``):
@@ -49,3 +49,73 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) -> rotation matrix. (..., 4) -> (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz,
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w,x,y,z), branch-free: the four
+    Shepperd candidates, the one with the largest pivot (first on ties),
+    sign fixed to w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = qw.clamp_min(1e-12)
+    s = torch.sqrt(qw)
+    s0, s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2], s[..., 3]
+    cand = torch.stack(
+        [
+            torch.stack([s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                         (m10 - m01) / s0], dim=-1),
+            torch.stack([(m21 - m12) / s1, s1, (m01 + m10) / s1,
+                         (m02 + m20) / s1], dim=-1),
+            torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, s2,
+                         (m12 + m21) / s2], dim=-1),
+            torch.stack([(m10 - m01) / s3, (m02 + m20) / s3,
+                         (m12 + m21) / s3, s3], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    best = torch.argmax(qw, dim=-1)
+    q = torch.take_along_dim(cand, best[..., None, None].expand(
+        best.shape + (1, 4)), dim=-2)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
+
+
+def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Shortest-arc unit quaternion rotating direction a onto direction b
+    (``Eigen::Quaterniond::FromTwoVectors``, reference
+    ``src/init/initializer.cc:73``); antiparallel inputs turn by pi about
+    an axis orthogonal to ``a``."""
+    a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    c = _cross(a, b)
+    d = torch.sum(a * b, dim=-1, keepdim=True)
+    q = torch.cat([1.0 + d, c], dim=-1)
+    ex = a.new_tensor([1.0, 0.0, 0.0]).expand(a.shape)
+    ey = a.new_tensor([0.0, 1.0, 0.0]).expand(a.shape)
+    ortho = _cross(a, ex)
+    use_alt = torch.linalg.vector_norm(ortho, dim=-1, keepdim=True) < 1e-6
+    ortho = torch.where(use_alt, _cross(a, ey), ortho)
+    q_pi = torch.cat([torch.zeros_like(d), ortho], dim=-1)
+    q = torch.where(d < (-1.0 + 1e-9), q_pi, q)
+    return quat_normalize(q)

@@ -1,0 +1,102 @@
+"""Batched RANSAC pieces (torch): sampling, support scores, selection.
+
+Port of the parts of ``privacy_preserving_sfm_tpu/solvers/ransac.py`` that
+the initializer and the triangulator call (the adaptive trial bound, PROSAC
+and the subset prescreen come with the mapper loop).  Semantics follow
+the reference framework (``src/optim/ransac.h:78-249``,
+``loransac.h:54-238``, ``support_measurement.h:43-77``), executed as a
+batch: B hypotheses are generated and scored together.
+
+Support (``InlierSupportMeasurer::Compare``): more inliers wins; equal
+inliers -> smaller inlier-residual sum wins, encoded as the single float
+``num_inliers - rs / (1 + rs)``.  MSAC (RansacLib, used by the init
+module) is ``-sum(min(r, thresh))``.  Selection keeps the first maximum.
+
+Random draws come from a ``torch.Generator`` on the CPU and are returned
+on the CPU, so a run on the card and a run on the CPU see the same
+samples; the reference's random streams are not reproduced.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class RansacResult(NamedTuple):
+    model: torch.Tensor  # the best hypothesis's model
+    score: torch.Tensor
+    num_inliers: torch.Tensor
+    inlier_mask: torch.Tensor
+    best_index: torch.Tensor
+
+
+def draw_samples(generator: torch.Generator, valid: torch.Tensor,
+                 sample_size: int, num_hypotheses: int) -> torch.Tensor:
+    """(..., B, k) index samples of k distinct valid entries of each row of
+    ``valid`` (..., N), uniform over the k-subsets.
+
+    Floyd's algorithm over the row's valid positions, vectorized over the
+    rows and hypotheses: k rounds, each one uniform draw per sample and a
+    membership test against the k - 1 members so far, so a call costs
+    O(B k^2) per row, whatever N (the reference's Gumbel top-k draws B x N
+    keys).  Each row needs at least k valid entries.
+    """
+    valid = valid.cpu()
+    lead = valid.shape[:-1]
+    n = valid.shape[-1]
+    nv = valid.sum(-1)  # (...)
+    if bool((nv < sample_size).any()):
+        raise ValueError(f"a row has fewer than {sample_size} valid entries")
+    shape = lead + (num_hypotheses,)
+    chosen = []
+    for step in range(sample_size):
+        hi = (nv - sample_size + step + 1)[..., None].expand(shape)  # j + 1
+        u = torch.rand(shape, generator=generator, dtype=torch.float64)
+        t = torch.minimum((u * hi).long(), hi - 1)
+        if chosen:
+            taken = torch.stack(chosen, -1)
+            t = torch.where((taken == t[..., None]).any(-1), hi - 1, t)
+        chosen.append(t)
+    rank = torch.stack(chosen, -1)  # positions among the valid entries
+    # Position r among the valid entries -> index in the row.
+    order = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    return torch.take_along_dim(
+        order[..., None, :].expand(shape + (n,)), rank, dim=-1)
+
+
+def inlier_score(residuals: torch.Tensor, threshold, valid: torch.Tensor):
+    """Inlier-count support with the residual-sum tiebreak over the last
+    axis.  Returns (score, num_inliers, inlier_mask)."""
+    inlier = (residuals < threshold) & valid
+    num = torch.sum(inlier, dim=-1)
+    rs = torch.sum(torch.where(inlier, residuals, 0.0), dim=-1)
+    score = num.to(residuals.dtype) - rs / (1.0 + rs)
+    return score, num, inlier
+
+
+def msac_score(residuals: torch.Tensor, threshold, valid: torch.Tensor):
+    """RansacLib LO-MSAC truncated score (negated: higher is better)."""
+    r = torch.where(valid, torch.minimum(
+        residuals, torch.as_tensor(threshold, dtype=residuals.dtype,
+                                   device=residuals.device)), 0.0)
+    inlier = (residuals < threshold) & valid
+    return -torch.sum(r, dim=-1), torch.sum(inlier, dim=-1), inlier
+
+
+def select_best(models, score: torch.Tensor, num_inliers: torch.Tensor,
+                inlier_mask: torch.Tensor) -> RansacResult:
+    """Argmax (first maximum) over the trailing hypothesis axis of
+    ``score`` (..., B); ``models`` has leading shape (..., B),
+    ``inlier_mask`` (..., B, N)."""
+    best = torch.argmax(score, dim=-1)  # (...)
+
+    def take(x):
+        idx = best.reshape(best.shape + (1,) * (x.ndim - best.ndim))
+        return torch.take_along_dim(x, idx, dim=best.ndim).squeeze(best.ndim)
+
+    return RansacResult(model=take(models), score=take(score),
+                        num_inliers=take(num_inliers),
+                        inlier_mask=take(inlier_mask), best_index=best)
+

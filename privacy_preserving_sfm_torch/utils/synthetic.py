@@ -1,11 +1,13 @@
 """Seeded synthetic data for tests and the chip smoke run.
 
-Three builders, numpy only, so both the reference package and the port can
+Four writers, numpy only, so both the reference package and the port can
 read what they write: ``synthetic_model`` (a line-BA model, text format),
 ``synthetic_matching_database`` (a matcher database with known
-correspondences, SQLite) and ``render_dataset`` (rendered images with
-gravity and calibration sidecars, the two scene kinds of
-``tools/synth_dataset.py``).
+correspondences, SQLite), ``synthetic_line_database`` (a mapper database of
+lifted lines, gravity and true matches, SQLite) and ``render_dataset``
+(rendered images with gravity and calibration sidecars, the two scene
+kinds of ``tools/synth_dataset.py``); and ``gauge_align_errors``, which
+holds 4 estimated poses against the truth up to gauge.
 
 ``synthetic_model`` builds a reconstruction in the layout of the line
 bundle-adjustment benchmark (``bench.py:28-81``): cameras spread along a
@@ -431,3 +433,107 @@ def render_dataset(outdir: str, num_images: int, width: int = 640,
     with open(os.path.join(outdir, "meta.json"), "w") as fo:
         json.dump(meta, fo)
     return dict(meta, poses=poses)
+
+
+def synthetic_line_database(path: str, num_images: int = 8,
+                            num_points: int = 120, seed: int = 0,
+                            aligned_ratio: float = 0.5,
+                            drop_prob: float = 0.1):
+    """A mapper database from a seeded scene: ``num_images`` cameras on an
+    arc looking at a point cloud (SIMPLE_PINHOLE f = 500, 640 x 480), every
+    visible point lifted to a line through its exact projection (aligned:
+    through gravity, for a per-point ``aligned_ratio`` share; else a
+    random direction), gravity per image, and every co-visible pair
+    matched (feature j of every image is point j).  Numpy twin of
+    ``tests/test_e2e_synthetic.py:build_synthetic_db`` at its defaults.
+    Returns (qs (V, 4), ts (V, 3), points (P, 3), image ids)."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for i in range(num_images):
+        yaw = -0.35 + 0.7 * i / max(1, num_images - 1)
+        q_yaw = np.array([np.cos(yaw / 2), 0, np.sin(yaw / 2), 0])
+        ax = rng.standard_normal(3) * 0.05
+        ang = np.linalg.norm(ax) + 1e-12
+        q_tilt = np.concatenate([[np.cos(ang / 2)],
+                                 np.sin(ang / 2) * ax / ang])
+        q = _quat_multiply(q_tilt, q_yaw)
+        t = np.array([-1.0 + 2.0 * i / max(1, num_images - 1),
+                      rng.uniform(-0.1, 0.1), rng.uniform(-0.2, 0.2)])
+        qs.append(q)
+        ts.append(t)
+    qs, ts = np.stack(qs), np.stack(ts)
+    pts = rng.uniform(-1.5, 1.5, (num_points, 3))
+    pts[:, 2] = np.abs(pts[:, 2]) + 3.0
+    aligned = rng.uniform(size=num_points) < aligned_ratio
+    f, cx, cy = 500.0, 320.0, 240.0
+    with Database(path) as db:
+        cam_id = db.write_camera("SIMPLE_PINHOLE", 640, 480,
+                                 np.array([f, cx, cy]), prior_focal=True)
+        image_ids, visible = [], []
+        for i in range(num_images):
+            iid = db.write_image(f"img{i:03d}.png", cam_id)
+            image_ids.append(iid)
+            R = lie_np.quat_to_rotmat(qs[i])
+            Xc = pts @ R.T + ts[i]
+            uv = Xc[:, :2] / Xc[:, 2:3]
+            pix = uv * f + np.array([cx, cy])
+            vis = ((Xc[:, 2] > 0.2) & (pix[:, 0] >= 0) & (pix[:, 0] < 640)
+                   & (pix[:, 1] >= 0) & (pix[:, 1] < 480)
+                   & (rng.uniform(size=num_points) > drop_prob))
+            visible.append(vis)
+            g = R @ np.array([0.0, 1.0, 0.0])
+            hom = np.concatenate([uv, np.ones((num_points, 1))], axis=1)
+            dirs = np.where(aligned[:, None],
+                            np.broadcast_to(g, (num_points, 3)),
+                            rng.standard_normal((num_points, 3)))
+            lines = np.cross(dirs, hom)
+            lines /= np.linalg.norm(lines[:, :2], axis=-1, keepdims=True)
+            # Invisible features keep random lines but never match.
+            lines[~vis] = rng.standard_normal((int((~vis).sum()), 3))
+            lines[~vis] /= np.linalg.norm(lines[~vis, :2], axis=-1,
+                                          keepdims=True)
+            db.write_lines(iid, lines, aligned)
+            db.write_gravity(iid, g)
+        for a in range(num_images):
+            for b in range(a + 1, num_images):
+                both = np.nonzero(visible[a] & visible[b])[0]
+                db.write_matches(image_ids[a], image_ids[b],
+                                 np.stack([both, both], 1).astype(np.uint32))
+    return qs, ts, pts, image_ids
+
+
+def read_gt_poses(path: str) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """``render_dataset``'s ``gt_poses.txt``: {name: (qvec, tvec)},
+    world -> camera."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts or parts[0].startswith("#"):
+                continue
+            v = np.asarray([float(p) for p in parts[1:8]])
+            out[parts[0]] = (v[:4], v[4:])
+    return out
+
+
+def gauge_align_errors(gt_qs, gt_ts, poses) -> Tuple[float, float]:
+    """Pose errors of 4 estimated (4, 3, 4) world->camera poses against the
+    true (qvec, tvec) up to gauge, as ``tests/test_init.py`` aligns them
+    (the reference's ``initializer_test.cc:372-381``): every pose relative
+    to camera 0.  Returns the largest rotation error and the largest angle
+    between estimated and true relative translation directions (cameras
+    1-3), both in radians."""
+    R = [lie_np.quat_to_rotmat(q) for q in gt_qs]
+    P = np.asarray(poses, np.float64)
+    R0, t0 = P[0, :, :3], P[0, :, 3]
+    rot_err, dir_err = [], []
+    for i in range(1, 4):
+        Rg = R[i] @ R[0].T
+        tg = gt_ts[i] - Rg @ gt_ts[0]
+        Re = P[i, :, :3] @ R0.T
+        te = P[i, :, 3] - Re @ t0
+        dR = Re @ Rg.T
+        rot_err.append(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+        cos = te @ tg / max(np.linalg.norm(te) * np.linalg.norm(tg), 1e-300)
+        dir_err.append(np.arccos(np.clip(cos, -1, 1)))
+    return float(max(rot_err)), float(max(dir_err))

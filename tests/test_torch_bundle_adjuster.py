@@ -121,12 +121,29 @@ def test_port_imports_without_jax():
         "    exif_focal, extraction, sensor_db, sift)\n"
         "from privacy_preserving_sfm_torch.ops import cameras, lines\n"
         "from privacy_preserving_sfm_torch.utils import png\n"
+        "from privacy_preserving_sfm_torch.init import initializer, sfm2d\n"
+        "from privacy_preserving_sfm_torch.solvers import (\n"
+        "    ransac, triangulation, triangulation_batch)\n"
+        "from privacy_preserving_sfm_torch.models import (\n"
+        "    correspondence_graph, database_cache, graph_view,\n"
+        "    native_graph)\n"
+        "from privacy_preserving_sfm_torch.sfm import (\n"
+        "    incremental_triangulator)\n"
+        "from privacy_preserving_sfm_torch.ops import (\n"
+        "    lie, lines_np, triangulation as tri_ops)\n"
         "import tempfile\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
         "d = tempfile.mkdtemp()\n"
         "synthetic.render_dataset(d + '/im', 1, 96, 64)\n"
         "ppsfm.main(['feature_extractor', '--database_path', d + '/t.db',\n"
         "            '--image_path', d + '/im', '--device', 'cpu',\n"
         "            '--max_num_features', '64'])\n"
+        "synthetic.synthetic_line_database(d + '/s.db', 8, 120, seed=0)\n"
+        "m = ppsfm.main(['line_initializer', '--database_path',\n"
+        "                d + '/s.db', '--output_path', d + '/init',\n"
+        "                '--device', 'cpu'])\n"
+        "assert len(m.rec.reg_image_ids) == 4 and m.rec.points3d\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"
