@@ -30,7 +30,17 @@ its database (phase ``extractor``); and ``line_initializer`` on that
 database (phase ``line_init``): twice on the card (byte-identical models,
 4 images, at least ``MIN_INIT_POINTS`` points, poses within
 ``LINE_INIT_BAR`` of the rendering's truth), once on the CPU (the same
-images, within the bar) and once under torch.profiler.  Prints one line
+images, within the bar) and once under torch.profiler; ``mapper`` on that
+database (phase ``mapper``, cell Mapper-1600): twice on the card, the
+second under torch.profiler split by the ``mapper.*`` and ``init.*``
+spans (one model, all 16 images, poses within ``MAPPER_BAR``,
+byte-identical models, ``schur_gram`` and ``schur_pcg`` launched, and
+the first run's largest local and global BA solved again with the
+kernels and with the plain versions, every Gram and PCG call of the
+solve checked against its plain version on the same inputs); and
+``automatic_reconstructor`` in a fresh process on 12 freshly rendered
+640 x 480 box images (phase ``auto``: all registered in one model within
+``AUTO_BAR``, ``match_top2`` launched).  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -136,6 +147,26 @@ MIN_REPEATABILITY, MIN_INLIER_RATE = 0.60, 0.76
 # rendering (tests/torch_init_bar.py, on a CPU), floored at 0.25 and 1.
 MIN_INIT_POINTS = 100
 LINE_INIT_BAR = (0.25, 1.0)
+# mapper on the extractor's database (cell Mapper-1600) and
+# automatic_reconstructor on AUTO = (images, (H, W), render seed): every
+# image registered in one model, the poses within the bar against the
+# rendering's truth up to gauge (rotation, translation direction; degrees,
+# the largest over the cameras relative to the first): twice the reference
+# CLI's errors on the same renderings, floored at 0.25 and 1
+# (tests/torch_mapper_bar.py on a CPU: the reference mapper on a
+# CPU-written database of the Mapper-1600 rendering, 16 of 16 images,
+# 0.02924 and 0.14298 deg; the reference automatic_reconstructor on AUTO's
+# rendering, 12 of 12, 0.06069 and 0.22236 deg).
+MAPPER_BAR = (0.25, 1.0)
+# The mapper's largest local and global BA solved again on the card with
+# the kernels and with the plain versions: every free camera within this
+# (rotation, degrees; centre, relative to the cameras' mean distance from
+# the problem's first camera) of the float64 plain solve, a 25th of
+# MAPPER_BAR's rotation (0.01 deg = 1.75e-4 rad, the same for the
+# centre), a third of the mapper's measured pose error.
+MAPPER_BA_TOL = (0.01, 1.75e-4)
+AUTO = (12, (480, 640), 1)
+AUTO_BAR = (0.25, 1.0)
 
 
 def check(ok, msg):
@@ -1287,8 +1318,12 @@ def match_keypoints(ka, kb, tol_px, tol_scale):
 
 def span_split(name, card, run, prefixes=("sift.", "extraction.")):
     """``run()`` once under torch.profiler: the device's busy share, and
-    each span's (named with one of ``prefixes``) host time and the device
-    time of the kernels launched inside it."""
+    each span's (named with one of ``prefixes``) host time, and the device
+    time and number of the kernels launched inside it.  Reads the
+    profiler's raw events (a kernel belongs to a span when the op that
+    launched it started inside the span), not its parsed event tree,
+    which takes minutes at a million launches."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1300,33 +1335,49 @@ def span_split(name, card, run, prefixes=("sift.", "extraction.")):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    averages = prof.key_averages()
-    host = {e.key for e in averages if e.device_type == cpu}
-    kernels = [e for e in averages if e.device_type != cpu
-               and e.key not in host and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    spans = {}
-    for e in prof.events():
-        if e.device_type != cpu or not e.name.startswith(prefixes):
-            continue
-        dev, todo = 0.0, list(e.cpu_children)
-        while todo:
-            x = todo.pop()
-            dev += sum(k.duration for k in getattr(x, "kernels", []))
-            todo.extend(x.cpu_children)
-        h, d, n = spans.get(e.name, (0.0, 0.0, 0))
-        spans[e.name] = (h + e.cpu_time_total / 1e3, d + dev / 1e3, n + 1)
+    t_parse = time.perf_counter()
+    op_start, host_names, spans, device = {}, set(), {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cpu:
+            n = e.name()
+            host_names.add(n)
+            # Ops and spans link to nothing; the runtime's launch calls
+            # link to their op and reuse its ids in another space.
+            if e.linked_correlation_id() == 0:
+                op_start[e.correlation_id()] = e.start_ns()
+            if n.startswith(prefixes):
+                spans.setdefault(n, []).append((e.start_ns(), e.end_ns()))
+        elif e.duration_ns() > 0:
+            device.append((e.name(), e.duration_ns(),
+                           e.linked_correlation_id()))
+    # Device copies of the spans' ranges are not kernels.
+    device = [(n, d, op_start.get(c, -1)) for n, d, c in device
+              if n not in host_names]
+    dur = np.array([d[1] for d in device], np.float64) / 1e6  # ms
+    launched = np.array([d[2] for d in device], np.int64)
+    total = float(dur.sum())
+    split = []
+    for k, ranges in spans.items():
+        ranges = np.array(sorted(ranges), np.int64)
+        i = np.searchsorted(ranges[:, 0], launched, "right") - 1
+        inside = (i >= 0) & (launched < ranges[np.maximum(i, 0), 1])
+        host = float((ranges[:, 1] - ranges[:, 0]).sum()) / 1e6
+        split.append((k, host, float(dur[inside].sum()), int(inside.sum()),
+                      len(ranges)))
     split = "; ".join(
-        f"{k} host {h:.2f} ms, device {d:.2f} ms ({100 * d / total:.1f} %) "
-        f"x{n}" for k, (h, d, n) in sorted(spans.items(),
-                                           key=lambda kv: -kv[1][1]))
-    top = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms "
-                    f"x{e.count}" for e in sorted(
-                        kernels, key=lambda e: -e.self_device_time_total)[:6])
+        f"{k} host {h:.2f} ms, device {d:.2f} ms "
+        f"({100 * d / max(total, 1e-9):.1f} %, {c} launches) x{n}"
+        for k, h, d, c, n in sorted(split, key=lambda x: -x[2]))
+    by_name = {}
+    for (kname, _, _), ms in zip(device, dur):
+        t, c = by_name.get(kname, (0.0, 0))
+        by_name[kname] = (t + ms, c + 1)
+    top = "; ".join(f"{k[:50]} {t:.2f} ms x{c}" for k, (t, c) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:6])
     phase(name, f"under torch.profiler: wall {wall * 1e3:.2f} ms, kernel "
           f"time {total:.2f} ms (busy {100 * total / 1e3 / wall:.1f} %, "
-          f"{sum(e.count for e in kernels)} launches); spans: {split}; top "
-          f"kernels: {top} | {card}")
+          f"{len(device)} launches); spans: {split}; top kernels: {top}; "
+          f"split in {time.perf_counter() - t_parse:.1f} s | {card}")
     check(total > 0, "the profiled run launched nothing on the card")
 
 
@@ -1802,6 +1853,437 @@ def phase_line_init(device, card, workdir, db):
     return walls
 
 
+def model_errors(out_dir, gt):
+    """The model in ``out_dir``: (model, registered names, rotation and
+    translation-direction errors in degrees of every pose relative to the
+    first by name, against ``gt`` up to gauge)."""
+    import numpy as np
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        gauge_align_errors,
+    )
+
+    rec = Reconstruction.read_text(out_dir)
+    ids = sorted(rec.reg_image_ids, key=lambda i: rec.images[i].name)
+    names = [rec.images[i].name for i in ids]
+    check(len(names) >= 2, f"{len(names)} images registered")
+    poses = np.stack([rec.images[i].projection_matrix() for i in ids])
+    rot, dirn = gauge_align_errors(np.stack([gt[n][0] for n in names]),
+                                   np.stack([gt[n][1] for n in names]),
+                                   poses)
+    return rec, names, float(np.degrees(rot)), float(np.degrees(dirn))
+
+
+# The mapper's methods that open a top-level span, by span name.
+MAPPER_SPANS = {"register_initial_line_images": "init",
+                "register_next_image": "mapper.register",
+                "triangulate_image": "mapper.triangulate",
+                "complete_tracks": "mapper.triangulate",
+                "merge_tracks": "mapper.triangulate",
+                "adjust_local_bundle": "mapper.local_ba (with its filter)",
+                "adjust_global_bundle": "mapper.global_ba",
+                "filter_points": "mapper.filter",
+                "filter_images": "mapper.filter"}
+
+
+@contextlib.contextmanager
+def mapper_span_peaks(record):
+    """Inside it, each of the mapper's top-level span methods resets the
+    card's peak memory when it starts and keeps the largest peak (bytes)
+    of its span in ``record``; none of them calls another."""
+    import torch
+
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+
+    saved = {k: getattr(IncrementalMapper, k) for k in MAPPER_SPANS}
+
+    def wrap(name, fn):
+        def method(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            span = MAPPER_SPANS[name]
+            record[span] = max(record.get(span, 0),
+                               torch.cuda.max_memory_allocated())
+            return out
+        return method
+
+    for name, fn in saved.items():
+        setattr(IncrementalMapper, name, wrap(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(IncrementalMapper, name, fn)
+
+
+@contextlib.contextmanager
+def mapper_ba_capture(record):
+    """Inside it, every SoA solve is kept in ``record`` as (valid
+    observations, problem, camera model, options, result) when it is the
+    largest so far of its kind: "local" (some points frozen, as local BA
+    freezes them) or "global" (every point variable)."""
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.optim import ba_soa
+
+    solve = ba_soa.bundle_adjust_soa
+
+    def keep(problem, camera_model, options=ba_mod.BAOptions(), *,
+             plain=False):
+        out = solve(problem, camera_model, options, plain=plain)
+        kind = "local" if bool((problem.point_mask == 0).any()) else "global"
+        nobs = int((problem.obs_weight > 0).sum())
+        if nobs > record.get(kind, (0,))[0]:
+            # Kept on the host, off the card's peaks by span.
+            record[kind] = (nobs, to_device(problem, "cpu"), camera_model,
+                            options, tuple(to_device(out[:3], "cpu"))
+                            + out[3:])
+        return out
+
+    ba_soa.bundle_adjust_soa = keep
+    try:
+        yield record
+    finally:
+        ba_soa.bundle_adjust_soa = solve
+
+
+def to_device(tensors, device):
+    """A tuple of tensors (a problem's NamedTuple too) on ``device``."""
+    return type(tensors)(*(t.to(device) for t in tensors)) \
+        if hasattr(tensors, "_fields") else tuple(
+            t.to(device) for t in tensors)
+
+
+def pose_differences(qa, ta, qb, tb, free):
+    """Largest rotation angle (degrees) between two pose sets and largest
+    camera-centre distance relative to the free cameras' mean distance
+    from the problem's first camera, over the ``free`` cameras."""
+    import numpy as np
+
+    from privacy_preserving_sfm_torch.ops.lie_np import quat_to_rotmat
+
+    qa, ta, qb, tb = (a.double().cpu().numpy() for a in (qa, ta, qb, tb))
+    dot = np.abs((qa * qb).sum(1)) / (np.linalg.norm(qa, axis=1)
+                                     * np.linalg.norm(qb, axis=1))
+    rot = np.degrees(2.0 * np.arccos(np.minimum(dot, 1.0)))[free].max()
+
+    def centres(q, t):
+        return np.stack([-quat_to_rotmat(qc).T @ tc
+                         for qc, tc in zip(q, t)])
+
+    ca, cb = centres(qa, ta), centres(qb, tb)
+    scale = max(np.linalg.norm(ca[free] - ca[0], axis=1).mean(), 1e-300)
+    return float(rot), float(np.linalg.norm(ca - cb, axis=1)[free].max()
+                             / scale)
+
+
+def check_mapper_ba(device, card, record):
+    """The mapper's largest local BA (frozen extra cameras and frozen
+    points) and largest global BA, held against the plain route on the
+    card.  Each is solved again with the kernels, which must give the
+    mapper's own result bit for bit; every Gram and PCG call of that solve
+    is checked against its plain version on the same inputs: the Gram at
+    phase ``gram``'s tolerances (1e-4 float32, 1e-10 float64, of the
+    largest entry); the PCG against a float64 plain solve, at phase
+    ``pcg``'s 1e-10 in float64 and, in float32, 1e-4 or, where the
+    solve's systems are more sensitive, four times the largest error of
+    the plain float32 solves of the same calls.  Then the whole problem in float32 through
+    the plain versions (plain=True) and in float64 through them: final
+    costs within 1e-3 of the float64 one, every free camera's rotation
+    within MAPPER_BA_TOL[0] degrees and centre within MAPPER_BA_TOL[1] of
+    the float64 one.  Returns, for the Gram and the PCG, the largest
+    relative error of the float32 calls and ``mapper_shape_times``."""
+    import torch
+
+    from privacy_preserving_sfm_torch.optim import ba_soa, schur_pcg
+
+    t_start = time.perf_counter()
+    check("local" in record, "the mapper ran no SoA local BA with frozen "
+          "points")
+    check("global" in record, "the mapper ran no SoA global BA")
+    worst = {"schur_gram": 0.0, "schur_pcg": 0.0}
+    for kind in ("local", "global"):
+        nobs, problem, model, options, (q0, t0, X0, s0) = record[kind]
+        problem = to_device(problem, device)
+        q0, t0, X0 = to_device((q0, t0, X0), device)
+        P, K = problem.obs_cam.shape
+        C = problem.qvecs.shape[0]
+        free = (problem.cam_dof_mask.sum(1) > 0).cpu().numpy()
+        frozen_points = int((problem.point_mask == 0).sum())
+        grams, pcgs = [], []
+        gram, pcg = schur_pcg.gram_soa, schur_pcg.pcg_schur
+
+        def gram_keep(lh, gl, cam, num_cams, precision="f32", plan=None):
+            grams.append((lh.clone(), gl.clone(), cam.clone(), precision))
+            return gram(lh, gl, cam, num_cams, precision, plan=plan)
+
+        def pcg_keep(S, dH, minv, rhs, iters, path="auto"):
+            pcgs.append((S.clone(), dH.clone(), minv.clone(), rhs.clone(),
+                         iters))
+            return pcg(S, dH, minv, rhs, iters, path)
+
+        schur_pcg.gram_soa, schur_pcg.pcg_schur = gram_keep, pcg_keep
+        try:
+            q, t, X, s = ba_soa.bundle_adjust_soa(problem, model, options)
+        finally:
+            schur_pcg.gram_soa, schur_pcg.pcg_schur = gram, pcg
+        torch.cuda.synchronize()
+        same = (torch.equal(q, q0) and torch.equal(t, t0)
+                and torch.equal(X, X0) and s == s0)
+        check(len(grams) > 0 and len(pcgs) > 0,
+              f"the {kind} BA solve made no Gram or PCG call")
+
+        gram_errs = []  # (float32, float64) of each call
+        for lh, gl, cam, precision in grams:
+            S_ref, r_ref = schur_pcg.gram_soa_plain(lh.double(), gl.double(),
+                                                    cam, C)
+            scales = (max(float(S_ref.abs().max()), 1e-300),
+                      max(float(r_ref.abs().max()), 1e-300))
+            S32, r32 = gram(lh, gl, cam, C, precision)
+            S64, r64 = gram(lh.double(), gl.double(), cam, C)
+            torch.cuda.synchronize()
+
+            def err(S, r):
+                return max(float((S.double() - S_ref).abs().max())
+                           / scales[0],
+                           float((r.double() - r_ref).abs().max())
+                           / scales[1])
+
+            gram_errs.append((err(S32, r32), err(S64, r64)))
+        pcg_errs = []  # (kernel float32, kernel float64, plain float32)
+        for S, dH, minv, rhs, iters in pcgs:
+            system64 = [a.double() for a in (S, dH, minv, rhs)]
+            x_ref = schur_pcg.pcg_schur_plain(*system64, iters)
+            norm = max(float(x_ref.norm()), 1e-300)
+
+            def rel(x):
+                return float((x.double() - x_ref).norm()) / norm
+
+            pcg_errs.append((
+                rel(pcg(S, dH, minv, rhs, iters)), rel(pcg(*system64, iters)),
+                rel(schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters))))
+        finite = all(math.isfinite(e) for e in sum(gram_errs + pcg_errs, ()))
+        g32, g64 = (max(e) for e in zip(*gram_errs))
+        p32, p64, plain32 = (max(e) for e in zip(*pcg_errs))
+        ratio = max(e[0] / max(e[2], 1e-300) for e in pcg_errs)
+        worst["schur_gram"] = max(worst["schur_gram"], g32)
+        worst["schur_pcg"] = max(worst["schur_pcg"], p32)
+        if kind == "local":
+            times = mapper_shape_times(card, gram, pcg, C, grams[0],
+                                       pcgs[0])
+
+        problem64 = problem._replace(**{
+            f: getattr(problem, f).double() for f in problem._fields
+            if getattr(problem, f).is_floating_point()})
+        qp, tp, _, sp = ba_soa.bundle_adjust_soa(problem, model, options,
+                                                 plain=True)
+        q64, t64, _, s64 = ba_soa.bundle_adjust_soa(problem64, model,
+                                                    options, plain=True)
+        torch.cuda.synchronize()
+        rel_k = abs(s.final_cost - s64.final_cost) / s64.final_cost
+        rel_p = abs(sp.final_cost - s64.final_cost) / s64.final_cost
+        rot_k, ctr_k = pose_differences(q, t, q64, t64, free)
+        rot_p, ctr_p = pose_differences(qp, tp, q64, t64, free)
+        phase("mapper", f"{kind} BA held against the plain route (C={C}, "
+              f"{int(free.sum())} free, P={P} ({frozen_points} frozen), "
+              f"K={K}, {nobs} observations): kernel re-solve bit-equal to "
+              f"the mapper's={same}; {len(grams)} Gram calls, max rel err "
+              f"float32 {g32:.3e} (tol 1e-4) float64 {g64:.3e} (tol "
+              f"1e-10); {len(pcgs)} PCG calls against float64 plain, max "
+              f"rel err float32 {p32:.3e} (tol "
+              f"{max(1e-4, 4 * plain32):.3e}) float64 {p64:.3e} (tol "
+              f"1e-10), plain float32 {plain32:.3e}, largest ratio of a "
+              f"call's float32 kernel and plain errors {ratio:.3f}; final "
+              f"cost kernels float32 "
+              f"{s.final_cost!r} ({s.num_iterations} it), plain float32 "
+              f"{sp.final_cost!r} ({sp.num_iterations} it), plain float64 "
+              f"{s64.final_cost!r} ({s64.num_iterations} it), initial "
+              f"{s.initial_cost!r}: rel diff {rel_k:.3e} and {rel_p:.3e} "
+              f"(tol 1e-3); against float64, rotation {rot_k:.3e} and "
+              f"{rot_p:.3e} deg (tol {MAPPER_BA_TOL[0]}), centre "
+              f"{ctr_k:.3e} and {ctr_p:.3e} (tol {MAPPER_BA_TOL[1]}) | "
+              f"{card}")
+        check(same, f"the {kind} BA solved again gave another result")
+        check(g32 <= 1e-4 and g64 <= 1e-10,
+              f"the Gram disagrees with its plain version in the {kind} BA")
+        check(finite, f"a Gram or PCG error in the {kind} BA is not finite")
+        check(p64 <= 1e-10 and p32 <= max(1e-4, 4 * plain32),
+              f"the PCG disagrees with its plain version in the {kind} BA")
+        check(frozen_points > 0 or kind == "global",
+              "the local BA froze no point")
+        for name, r, rot, ctr in (("kernels", rel_k, rot_k, ctr_k),
+                                  ("plain float32", rel_p, rot_p, ctr_p)):
+            check(r <= 1e-3, f"the {kind} BA's final cost ({name}) "
+                  "disagrees with the float64 plain solve")
+            check(rot <= MAPPER_BA_TOL[0] and ctr <= MAPPER_BA_TOL[1],
+                  f"the {kind} BA's poses ({name}) disagree with the "
+                  "float64 plain solve")
+    phase("mapper", f"BAs held against the plain route in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return {name: dict(mapper_max_rel_err=worst[name], **times[name])
+            for name in worst}
+
+
+def mapper_shape_times(card, gram, pcg, C, gram_args, pcg_args, reps=5):
+    """Times (CUDA events, ms) of the kernels and their plain versions on
+    the first Gram and PCG inputs of the mapper's largest local BA, with
+    their bounds."""
+    from privacy_preserving_sfm_torch.optim import schur_pcg
+
+    lh, gl, cam, precision = gram_args
+    K, P = cam.shape
+    plan = schur_pcg.gram_plan(cam, C, "soa")
+    g_ms = cuda_ms(lambda: gram(lh, gl, cam, C, precision, plan=plan), reps)
+    g_plain = cuda_ms(
+        lambda: schur_pcg.gram_soa_plain(lh, gl, cam, C, precision), reps)
+    g_bound = gram_bound(K, P, C, plan, lh.element_size())
+    S, dH, minv, rhs, iters = pcg_args
+    p_ms = cuda_ms(lambda: pcg(S, dH, minv, rhs, iters), reps)
+    p_plain = cuda_ms(
+        lambda: schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters), reps)
+    p_bound, p_by = pcg_bound(C, S.element_size(), iters)
+    phase("mapper", f"at the local BA's shape (K={K} P={P} C={C}): Gram "
+          f"kernel {g_ms:.4f} ms (plan prebuilt; bound "
+          f"{g_bound['bound_ms']:.3e} ms, {g_bound['bound_by']}), plain "
+          f"{g_plain:.4f} ms; PCG (n={6 * C}, {iters} iterations) kernel "
+          f"{p_ms:.4f} ms (bound {p_bound:.3e} ms, {p_by}), plain "
+          f"{p_plain:.4f} ms | {card}")
+    return {"schur_gram": dict(mapper_ms=g_ms, mapper_plain_ms=g_plain,
+                               mapper_bound_ms=g_bound["bound_ms"]),
+            "schur_pcg": dict(mapper_ms=p_ms, mapper_plain_ms=p_plain,
+                              mapper_bound_ms=p_bound)}
+
+
+def phase_mapper(device, card, workdir, db):
+    """``mapper`` on phase ``extractor``'s database (cell Mapper-1600)
+    twice on the card, the second run under torch.profiler split by the
+    mapper's ``mapper.*`` and ``init.*`` spans: one model with every image
+    registered, the poses within MAPPER_BAR of the rendering's truth, the
+    two models byte-identical, the first run's largest local and global
+    BA held against the plain route (``check_mapper_ba``), and
+    ``schur_gram`` and ``schur_pcg`` launched in the profiled run.
+    Returns the first run's wall, the profiled run's launches and the
+    kernels' largest errors in those BAs."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.utils.synthetic import read_gt_poses
+
+    gt = read_gt_poses(os.path.join(workdir, "images", "gt_poses.txt"))
+    launches = {}
+
+    def run(out):
+        for name in build.LAUNCHES:
+            build.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl = ppsfm.main(["mapper", "--database_path", db, "--output_path",
+                           out, "--device", device.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.clear()
+        launches.update(build.LAUNCHES)
+        check(ctrl.device.type == device.type,
+              f"the mapper ran on {ctrl.device}, not {device.type}")
+        models = sorted(os.listdir(out))
+        check(models == ["0"], f"models {models}, not one")
+        rec, names, rot, dirn = model_errors(os.path.join(out, "0"), gt)
+        check(len(names) == len(gt), f"{len(names)} of {len(gt)} images "
+              "registered")
+        check(rot <= MAPPER_BAR[0] and dirn <= MAPPER_BAR[1],
+              "the mapper's poses miss the bar")
+        return ctrl, wall, rec, rot, dirn
+
+    peaks, solves = {}, {}
+    out_a = os.path.join(workdir, "mapper_a")
+    with mapper_span_peaks(peaks), mapper_ba_capture(solves):
+        ctrl, wall, rec, rot, dirn = run(out_a)
+    tot = ctrl.profiler.totals
+    top = ", ".join(f"{k} {tot[k]:.3f} s" for k in (
+        "init", "register", "triangulate", "local_refine", "global_refine"))
+    subs = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+        tot.items(), key=lambda kv: -kv[1]) if "/" in k and v >= 0.05)
+    phase("mapper", f"mapper --device {device.type}: wall {wall:.3f} s, "
+          f"{len(rec.reg_image_ids) / wall:.3f} images registered/s, "
+          f"{len(rec.points3d)} points, mean reproj "
+          f"{rec.compute_mean_reprojection_error():.3f} px; rotation error "
+          f"{rot:.4f} deg, translation direction error {dirn:.4f} deg (bar "
+          f"{MAPPER_BAR[0]} and {MAPPER_BAR[1]} deg); phase times {top}; "
+          f"sub-phases {subs}; launches {dict(launches)} | {card}")
+    phase("mapper", "peak device memory by span: " + ", ".join(
+        f"{k} {v / 2**20:.1f} MiB" for k, v in sorted(
+            peaks.items(), key=lambda kv: -kv[1])) + f" | {card}")
+    errors = check_mapper_ba(device, card, solves)
+    solves.clear()
+    torch.cuda.empty_cache()
+    out_b = os.path.join(workdir, "mapper_b")
+    span_split("mapper", card, lambda: run(out_b),
+               prefixes=("mapper.", "init."))
+    same = _model_bytes(os.path.join(out_a, "0")) == _model_bytes(
+        os.path.join(out_b, "0"))
+    phase("mapper", f"profiled run's launches {dict(launches)}; two card "
+          f"runs byte-identical={same}")
+    check(same, "two card runs wrote different models")
+    check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
+          "the mapper launched no schur_gram or no schur_pcg")
+    return wall, dict(launches), errors
+
+
+def phase_auto(device, card, workdir):
+    """``automatic_reconstructor`` in a fresh process on a fresh seeded
+    rendering (AUTO): one model with every image registered within
+    AUTO_BAR, and ``match_top2`` launched.  Returns the process's
+    launches."""
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        read_gt_poses, render_dataset,
+    )
+
+    n, (h, w), seed = AUTO
+    images = os.path.join(workdir, "auto_images")
+    render_dataset(images, n, w, h, seed=seed, scene="box")
+    ws = os.path.join(workdir, "auto")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "privacy_preserving_sfm_torch.exe",
+         "automatic_reconstructor", "--workspace_path", ws, "--image_path",
+         images, "--device", device.type], cwd=REPO, timeout=900,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"automatic_reconstructor failed: {out.stderr[-3000:]}")
+    launches = {k: int(v) for k, v in re.findall(
+        r"(\w+)=(\d+)", re.search(r"kernel launches: (.*)",
+                                  out.stdout).group(1))}
+    rate = re.search(r"images registered/s: ([\d.]+)", out.stdout)
+    peak = re.search(r"peak device memory ([\d.]+) MiB", out.stdout)
+    sparse = os.path.join(ws, "sparse")
+    models = sorted(os.listdir(sparse))
+    check(models == ["0"], f"models {models}, not one")
+    gt = read_gt_poses(os.path.join(images, "gt_poses.txt"))
+    rec, names, rot, dirn = model_errors(os.path.join(sparse, "0"), gt)
+    phase("auto", f"automatic_reconstructor --device {device.type} on {n} "
+          f"box images {w}x{h} (seed {seed}) in a fresh process: wall "
+          f"{wall:.2f} s, mapper {rate.group(1) if rate else '?'} images "
+          f"registered/s, peak device memory "
+          f"{peak.group(1) if peak else '?'} MiB; {len(names)} images, "
+          f"{len(rec.points3d)} points; rotation error {rot:.4f} deg, "
+          f"translation direction error {dirn:.4f} deg (bar {AUTO_BAR[0]} "
+          f"and {AUTO_BAR[1]} deg); launches {launches} | {card}")
+    check(len(names) == n, f"{len(names)} of {n} images registered")
+    check(rot <= AUTO_BAR[0] and dirn <= AUTO_BAR[1],
+          "automatic_reconstructor's poses miss the bar")
+    check(launches["match_top2"] > 0, "match_top2 was not launched")
+    return launches
+
+
 def device_split(name, card, run, kernel, top=6):
     """``run()`` under torch.profiler: wall, kernel time and busy share,
     ``kernel``'s share of kernel time and the ``top`` device events by
@@ -1876,6 +2358,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             timed("line_init", phase_line_init, device, card, workdir,
                   os.path.join(workdir, "fresh.db"))
+            torch.cuda.empty_cache()
+            _, mapper_launches, mapper_errors = timed(
+                "mapper", phase_mapper, device, card, workdir,
+                os.path.join(workdir, "fresh.db"))
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            auto_launches = timed("auto", phase_auto, device, card, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("dense_implicit", phase_dense_implicit, device, card,
@@ -1890,14 +2379,18 @@ def main() -> int:
     kernels = [
         dict(name="schur_gram", route="cuda", source=src + "schur_gram.cu",
              replaces=f"{ref}:383", also_replaces=f"{ref}:500",
-             launches=launches["schur_gram"], **gram_stats),
+             launches=launches["schur_gram"],
+             mapper_launches=mapper_launches["schur_gram"],
+             **mapper_errors["schur_gram"], **gram_stats),
         dict(name="schur_pcg", route="cuda", source=src + "schur_pcg.cu",
              replaces=f"{ref}:93", launches=launches["schur_pcg"],
-             **pcg_stats),
+             mapper_launches=mapper_launches["schur_pcg"],
+             **mapper_errors["schur_pcg"], **pcg_stats),
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",
              launches=launches["match_top2"],
-             extractor_launches=extractor_launches, **match_stats),
+             extractor_launches=extractor_launches,
+             auto_launches=auto_launches["match_top2"], **match_stats),
         dict(name="schur_gram_aos", route="cuda",
              source=src + "schur_gram.cu", replaces=f"{ref}:256",
              launches=launches["schur_gram_aos"], **gram_aos_stats),

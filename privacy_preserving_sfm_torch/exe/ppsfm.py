@@ -22,10 +22,21 @@ Ported subcommands, with the flags of the reference CLI
 * ``line_initializer`` (``:453-473, 636-639``): the mapper's 4-view
   initialization on the database (``min_num_matches`` 4), written as a
   text model; it computes in float32 on either device, as the reference
-  does on its accelerator.
+  does on its accelerator;
+* ``mapper`` (``:338-374, 608-613``): the incremental mapper controller
+  on the database, in float32, resumed from ``--input_path`` when given;
+  it prints the phase profile, the images registered per second and, on
+  CUDA, the peak device memory, and writes each model with its
+  ``project.ini``;
+* ``image_filterer`` (``:441-450, 629-634``) and ``project_generator``
+  (``:503-511, 656-661``), host code with no ``--device``;
+* ``automatic_reconstructor`` (``:514-539, 663-670``): the extractor, the
+  matcher and the mapper in one process under a quality preset.
 
-Device work runs on ``--device`` (default ``cuda``; asking for CUDA
-without a CUDA device is an error, never a silent CPU run).
+13 of the reference's 15 subcommands; ``hierarchical_mapper`` and
+``model_viewer`` are not ported.  Device work runs on ``--device``
+(default ``cuda``; asking for CUDA without a CUDA device is an error,
+never a silent CPU run).
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ def cmd_bundle_adjuster(args):
     )
     from privacy_preserving_sfm_torch.optim import ba as ba_mod
     from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
-        IncrementalMapper,
+        IncrementalMapper, MapperOptions,
     )
     from privacy_preserving_sfm_torch.utils.timer import Timer, print_heading1
 
@@ -67,7 +78,7 @@ def cmd_bundle_adjuster(args):
     mapper = IncrementalMapper(device, _DTYPES[args.dtype])
     mapper.begin_reconstruction(rec)
     opts = ba_mod.BAOptions(max_iterations=args.max_num_iterations)
-    ok = mapper.adjust_global_bundle(opts)
+    ok = mapper.adjust_global_bundle(MapperOptions(), opts)
     os.makedirs(args.output_path, exist_ok=True)
     rec.write_text(args.output_path)
     s = mapper.last_summary
@@ -433,6 +444,118 @@ def cmd_matches_importer(args):
     return n
 
 
+def cmd_mapper(args):
+    """The incremental mapper on the database (reference ``ppsfm.py:
+    338-374``).  Returns the controller."""
+    import time
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.sfm.controller import (
+        ControllerOptions, IncrementalMapperController,
+    )
+    from privacy_preserving_sfm_torch.utils.config import AllOptions
+    from privacy_preserving_sfm_torch.utils.timer import Timer
+
+    device = _device(args.device)
+    timer = Timer()
+    input_rec = None
+    if args.input_path:
+        input_rec = Reconstruction.read_text(args.input_path)
+        print(f"  resuming from {args.input_path} "
+              f"({input_rec.num_registered()} images)")
+    ctrl = IncrementalMapperController(
+        ControllerOptions(), database_path=args.database_path,
+        input_reconstruction=input_rec, device=device, dtype=torch.float32)
+    t0 = time.perf_counter()
+    recs = ctrl.run()
+    mapper_wall = time.perf_counter() - t0
+    num_reg = sum(r.num_registered() for r in recs)
+    print(ctrl.profiler.report())
+    print(f"  => images registered/s: {num_reg / max(mapper_wall, 1e-9):.3f}"
+          f" ({num_reg} images in {mapper_wall:.1f}s)")
+    if device.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    os.makedirs(args.output_path, exist_ok=True)
+    for i, rec in enumerate(recs):
+        out = os.path.join(args.output_path, str(i))
+        rec.write_text(out)
+        AllOptions(database_path=args.database_path,
+                   image_path=args.image_path).save(
+                       os.path.join(out, "project.ini"))
+        print(f"  model {i}: {rec.num_registered()} images, "
+              f"{len(rec.points3d)} points, "
+              f"mean reproj {rec.compute_mean_reprojection_error():.3f}px")
+    timer.print_minutes()
+    return ctrl
+
+
+def cmd_image_filterer(args):
+    """Filter the points, then the images, of a text model (reference
+    ``ppsfm.py:441-450``)."""
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+
+    rec = Reconstruction.read_text(args.input_path)
+    before = rec.num_registered()
+    rec.filter_points3d(args.max_reproj_error, args.min_tri_angle)
+    filtered = rec.filter_images()
+    os.makedirs(args.output_path, exist_ok=True)
+    rec.write_text(args.output_path)
+    print(f"Filtered {len(filtered)} of {before} images")
+    return filtered
+
+
+def cmd_project_generator(args):
+    """Write a ``project.ini`` with the defaults, under a quality preset
+    when given (reference ``ppsfm.py:503-511``)."""
+    from privacy_preserving_sfm_torch.utils.config import AllOptions
+
+    opts = AllOptions(database_path=args.database_path,
+                      image_path=args.image_path)
+    if args.quality:
+        opts.apply_quality_preset(args.quality)
+    opts.save(args.output_path)
+    print(f"Wrote project file to {args.output_path}")
+    return opts
+
+
+def cmd_automatic_reconstructor(args):
+    """``feature_extractor``, a matcher and ``mapper`` in one process on
+    ``WORKSPACE/database.db``, models under ``WORKSPACE/sparse``
+    (reference ``ppsfm.py:514-539``); prints the process's hand-kernel
+    launches.  Returns the mapper's controller."""
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.utils.config import AllOptions
+
+    _device(args.device)
+    opts = AllOptions()
+    if args.quality:
+        opts.apply_quality_preset(args.quality)
+    args.database_path = os.path.join(args.workspace_path, "database.db")
+    args.max_image_size = opts.extraction.max_image_size
+    args.max_num_features = opts.extraction.sift.max_num_features
+    args.aligned_line_ratio = opts.extraction.aligned_line_ratio
+    args.seed = 0
+    args.min_num_matches = opts.matching.min_num_matches
+    args.block_size = opts.matching.block_size
+    args.input_path = ""
+    args.output_path = os.path.join(args.workspace_path, "sparse")
+    os.makedirs(args.workspace_path, exist_ok=True)
+    cmd_feature_extractor(args)
+    if args.matcher == "sequential":
+        cmd_sequential_matcher(args)
+    else:
+        cmd_exhaustive_matcher(args)
+    ctrl = cmd_mapper(args)
+    print("  kernel launches: " + " ".join(
+        f"{k}={v}" for k, v in build.LAUNCHES.items()))
+    return ctrl
+
+
 def _add_db_arg(p):
     p.add_argument("--database_path", required=True)
 
@@ -517,6 +640,42 @@ def main(argv=None):
                    help="torch device of the initializer and the "
                    "triangulation: cuda (default) or cpu")
     p.set_defaults(func=cmd_line_initializer)
+
+    p = sub.add_parser("mapper")
+    _add_db_arg(p)
+    p.add_argument("--image_path", default="")
+    p.add_argument("--input_path", default="")
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the mapper: cuda (default) or cpu")
+    p.set_defaults(func=cmd_mapper)
+
+    p = sub.add_parser("image_filterer")
+    p.add_argument("--input_path", required=True)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--max_reproj_error", type=float, default=4.0)
+    p.add_argument("--min_tri_angle", type=float, default=1.5)
+    p.set_defaults(func=cmd_image_filterer)
+
+    p = sub.add_parser("project_generator")
+    p.add_argument("--database_path", default="")
+    p.add_argument("--image_path", default="")
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--quality", default="")
+    p.set_defaults(func=cmd_project_generator)
+
+    p = sub.add_parser("automatic_reconstructor")
+    p.add_argument("--workspace_path", required=True)
+    p.add_argument("--image_path", required=True)
+    p.add_argument("--quality", default="high")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--matcher", choices=["exhaustive", "sequential"],
+                   default="exhaustive")
+    p.add_argument("--overlap", type=int, default=10)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the extractor, the matcher and "
+                   "the mapper: cuda (default) or cpu")
+    p.set_defaults(func=cmd_automatic_reconstructor)
 
     args = parser.parse_args(argv)
     return args.func(args)

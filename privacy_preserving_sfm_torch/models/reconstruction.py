@@ -2,11 +2,11 @@
 
 Numpy host code carried over from
 ``privacy_preserving_sfm_tpu/models/reconstruction.py`` (verbatim where
-possible), with what the ``bundle_adjuster`` and ``line_initializer``
-slices use: the containers, bookkeeping (registration, deregistration,
-point merges), the reference-compatible text model IO, the
-negative-depth filter, ``normalize``/``transform`` and the batched squared
-line error.
+possible): the containers, bookkeeping (registration, deregistration,
+point merges), the reference-compatible text model IO, the point filters
+(large reprojection error, small triangulation angle, negative depth),
+the image filter, ``normalize``/``transform`` and the squared line
+errors.
 Mirror of the reference's ``src/base/reconstruction.{h,cc}``,
 ``image.{h,cc}``, ``point3d.h`` and ``track.h``.
 """
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -211,6 +211,16 @@ class Reconstruction:
             self.images[image_id].point3d_ids[line_idx] = pid
         return pid
 
+    def _squared_line_reproj_error(self, image: Image, line_idx: int,
+                                   xyz: np.ndarray) -> float:
+        from privacy_preserving_sfm_torch.ops import lines_np
+
+        cam = self.cameras[image.camera_id]
+        return float(lines_np.squared_line_reprojection_error(
+            image.lines[line_idx], np.asarray(xyz, float),
+            image.projection_matrix(), cam.model, cam.params,
+            cam.width, cam.height))
+
     def batch_squared_line_errors(self, obs_img: np.ndarray,
                                   obs_li: np.ndarray,
                                   xyz_per_obs: np.ndarray) -> np.ndarray:
@@ -241,6 +251,16 @@ class Reconstruction:
                 cam.width, cam.height)
         return errs
 
+    def filter_points3d(self, max_reproj_error: float, min_tri_angle_deg: float,
+                        point3d_ids: Optional[Set[int]] = None) -> int:
+        """Combined filter used after BA (``FilterPoints3D``):
+        reprojection-error filter then small-tri-angle filter."""
+        ids = set(self.points3d.keys()) if point3d_ids is None \
+            else set(point3d_ids)
+        n = self.filter_points3d_large_reproj_error(max_reproj_error, ids)
+        n += self.filter_points3d_small_tri_angle(min_tri_angle_deg, ids)
+        return n
+
     def _flat_track_obs(self, pid_arr: np.ndarray):
         """Flat (obs_img, obs_li, obs_idx) arrays for the tracks of the
         sorted pid array, gathered from the per-image ``point3d_ids``
@@ -264,6 +284,141 @@ class Reconstruction:
         return (np.concatenate(obs_img), np.concatenate(obs_li),
                 np.concatenate(obs_idx), np.concatenate(obs_al))
 
+    def filter_points3d_large_reproj_error(
+            self, max_reproj_error: float, point3d_ids: Set[int]) -> int:
+        """Exact semantics of ``reconstruction.cc:657-720``: delete tracks
+        with no random line or < 3 observations; then per-observation pixel
+        error thresholding; delete the whole point when
+        #bad >= track_len - 3.  Fully vectorized: track membership is read
+        back from the per-image ``point3d_ids`` arrays and every per-point
+        decision is a bincount over the flat observation table."""
+        max_sq = max_reproj_error ** 2
+        num_filtered = 0
+
+        pid_arr = np.array(sorted(p for p in point3d_ids
+                                  if p in self.points3d), np.int64)
+        if len(pid_arr) == 0:
+            return 0
+        obs_img, obs_li, obs_idx, aligned = self._flat_track_obs(pid_arr)
+        m = len(pid_arr)
+        track_len = np.bincount(obs_idx, minlength=m)
+        have_random = np.bincount(obs_idx, weights=~aligned,
+                                  minlength=m) > 0
+
+        # Phase 1: the no-random-line / short-track rule.
+        phase1_del = (~have_random) | (track_len < 3)
+        for k in np.nonzero(phase1_del)[0]:
+            num_filtered += int(track_len[k])
+            self.delete_point3d(int(pid_arr[k]))
+        keep_obs = ~phase1_del[obs_idx]
+        obs_img, obs_li, obs_idx = (obs_img[keep_obs], obs_li[keep_obs],
+                                    obs_idx[keep_obs])
+        if len(obs_idx) == 0:
+            return num_filtered
+
+        # Phase 2: one vectorized error evaluation over every observation
+        # of every surviving track.
+        xyz_tab = np.zeros((m, 3))
+        for k in np.nonzero(~phase1_del)[0]:
+            xyz_tab[k] = self.points3d[int(pid_arr[k])].xyz
+        errs = self.batch_squared_line_errors(obs_img, obs_li,
+                                              xyz_tab[obs_idx])
+
+        # Phase 3: per-point decisions (independent across points, so the
+        # reference's per-track order of effects is preserved).
+        bad = errs > max_sq
+        bad_count = np.bincount(obs_idx, weights=bad, minlength=m)
+        kill = np.zeros(m, bool)
+        kill[~phase1_del] = (bad_count >= track_len - 3)[~phase1_del]
+        for k in np.nonzero(kill)[0]:
+            num_filtered += int(track_len[k])
+            self.delete_point3d(int(pid_arr[k]))
+        drop = bad & ~kill[obs_idx]
+        num_filtered += int(drop.sum())
+        for i, l in zip(obs_img[drop], obs_li[drop]):
+            self.delete_observation(int(i), int(l))
+        err_sum = np.bincount(obs_idx, weights=np.sqrt(errs) * ~bad,
+                              minlength=m)
+        for k in np.nonzero(~phase1_del & ~kill)[0]:
+            pt = self.points3d.get(int(pid_arr[k]))
+            if pt is not None and len(pt.track) > 0:
+                pt.error = err_sum[k] / len(pt.track)
+        return num_filtered
+
+    def filter_points3d_small_tri_angle(
+            self, min_tri_angle_deg: float, point3d_ids: Set[int]) -> int:
+        """``reconstruction.cc:594-654``: delete when no image pair in the
+        track reaches the minimum triangulation angle.  Vectorized: distinct
+        (point, image) pairs are padded to a (points, T) table and all
+        pairwise angles evaluated by broadcasting, in point chunks."""
+        from privacy_preserving_sfm_torch.ops import lines_np
+
+        min_rad = np.deg2rad(min_tri_angle_deg)
+        pid_arr = np.array(sorted(p for p in point3d_ids
+                                  if p in self.points3d), np.int64)
+        if len(pid_arr) == 0:
+            return 0
+        obs_img, _, obs_idx, _ = self._flat_track_obs(pid_arr)
+        m = len(pid_arr)
+        img_list = np.unique(obs_img)
+        n_img = len(img_list)
+        centers_tab = np.stack([
+            self.images[int(i)].projection_center() for i in img_list])
+        dense_img = np.searchsorted(img_list, obs_img)
+        uk = np.unique(obs_idx * n_img + dense_img)
+        p_of = uk // n_img
+        xyz_tab = np.zeros((m, 3))
+        for k in range(m):
+            xyz_tab[k] = self.points3d[int(pid_arr[k])].xyz
+
+        # The folded tri angle d(a, b) = arccos|a.b| is a METRIC on RP^2,
+        # so deviations from one reference ray bound every pairwise angle:
+        # max_i d(i, 0) >= thr        -> pair (i, 0) qualifies: KEEP;
+        # top1 + top2 deviations < thr -> all pairs < thr:       DELETE.
+        # Only the thin ambiguous band needs the O(T^2) pairwise check.
+        # This replaces the previous (m, T, T) Gram cube (33 s on an
+        # 11.5k-point / 40-mean-track model; this path is ~0.1 s).
+        rays = centers_tab[uk % n_img] - xyz_tab[p_of]
+        nrm = np.linalg.norm(rays, axis=-1)
+        good = nrm > 1e-12
+        p_of, rays, nrm = p_of[good], rays[good], nrm[good]
+        cnt = np.bincount(p_of, minlength=m)
+        u = rays / nrm[:, None]
+        ptr = np.concatenate([[0], np.cumsum(cnt)])
+        first = np.zeros(len(p_of), np.int64)
+        first[:] = ptr[p_of]  # index of each point's reference ray
+        dev = np.arccos(np.clip(np.abs(np.sum(u * u[first], axis=1)),
+                                -1.0, 1.0))
+        # Per-point top-2 deviations via one lexsort.
+        order = np.lexsort((dev, p_of))
+        top1 = np.zeros(m)
+        top2 = np.zeros(m)
+        has = cnt > 0
+        top1[p_of[order[ptr[1:][has] - 1]]] = dev[order[ptr[1:][has] - 1]]
+        two = cnt > 1
+        top2[p_of[order[ptr[1:][two] - 2]]] = dev[order[ptr[1:][two] - 2]]
+
+        keep = (cnt >= 2) & (top1 >= min_rad)
+        delete = (cnt < 2) | ((top1 + top2) < min_rad)
+        ambiguous = ~keep & ~delete
+        if ambiguous.any():
+            cos_thr = np.cos(min_rad)
+            for k in np.nonzero(ambiguous)[0]:
+                seg = order[ptr[k]:ptr[k + 1]]
+                uu = u[seg]
+                G = np.abs(uu @ uu.T)
+                np.fill_diagonal(G, 2.0)
+                if G.min() <= cos_thr:
+                    keep[k] = True
+                else:
+                    delete[k] = True
+
+        num_filtered = 0
+        for k in np.nonzero(delete)[0]:
+            num_filtered += 1
+            self.delete_point3d(int(pid_arr[k]))
+        return num_filtered
+
     def filter_observations_with_negative_depth(self) -> int:
         """``reconstruction.cc:442``-ish: drop observations behind camera."""
         pid_arr = np.array(sorted(self.points3d.keys()), np.int64)
@@ -281,6 +436,24 @@ class Reconstruction:
             self.delete_observation(int(i), int(l))
             n += 1
         return n
+
+    def filter_images(self, min_focal_ratio=0.1, max_focal_ratio=10.0,
+                      max_extra_param=1.0) -> List[int]:
+        """De-register images with no 3D points or bogus cameras
+        (``reconstruction.cc`` FilterImages)."""
+        filtered = []
+        from privacy_preserving_sfm_torch.ops import cameras as cam_ops
+        for iid in list(self.reg_image_ids):
+            img = self.images[iid]
+            cam = self.cameras[img.camera_id]
+            bogus = cam_ops.has_bogus_params(
+                cam.model, cam.params, cam.width, cam.height,
+                min_focal_ratio, max_focal_ratio, max_extra_param)
+            if img.num_points3d() == 0 or bogus:
+                filtered.append(iid)
+        for iid in filtered:
+            self.deregister_image(iid)
+        return filtered
 
     def compute_mean_reprojection_error(self) -> float:
         errs = [p.error for p in self.points3d.values() if p.error >= 0]

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 # ---------------------------------------------------------------------------
@@ -345,3 +346,24 @@ def image_to_world_threshold(model: str, params: torch.Tensor,
     mean focal length (``BaseCameraModel::ImageToWorldThreshold``,
     ``camera_models.h:533-543``)."""
     return threshold / mean_focal_length(model, params)
+
+
+def has_bogus_params(model: str, params, width, height,
+                     min_focal_ratio: float, max_focal_ratio: float,
+                     max_extra_param: float) -> bool:
+    """Host-side sanity check of camera parameters: a focal ratio outside
+    [min, max] of the larger image side, a principal point outside the
+    image or an extra parameter above ``max_extra_param`` in magnitude
+    (``HasBogusFocalLength`` / ``HasBogusPrincipalPoint`` /
+    ``HasBogusExtraParams``, ``camera_models.h:478-531``)."""
+    spec = MODELS[model]
+    p = np.asarray(params)
+    max_dim = max(width, height)
+    for i in spec.focal_idxs:
+        ratio = p[i] / max_dim
+        if ratio < min_focal_ratio or ratio > max_focal_ratio:
+            return True
+    cx, cy = p[spec.principal_idxs[0]], p[spec.principal_idxs[1]]
+    if not (0 <= cx <= width and 0 <= cy <= height):
+        return True
+    return any(abs(p[i]) > max_extra_param for i in spec.extra_idxs)

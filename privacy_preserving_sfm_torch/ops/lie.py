@@ -119,3 +119,23 @@ def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     q_pi = torch.cat([torch.zeros_like(d), ortho], dim=-1)
     q = torch.where(d < (-1.0 + 1e-9), q_pi, q)
     return quat_normalize(q)
+
+
+def cayley_to_rotmat(c: torch.Tensor) -> torch.Tensor:
+    """Cayley parameters (..., 3) -> rotation matrices (..., 3, 3):
+    R = ((1 - |c|^2) I + 2 c c^T + 2 [c]_x) / (1 + |c|^2), the P6L
+    solver's rotation unknowns (``absolute_pose.cc:64-75``)."""
+    c0, c1, c2 = c[..., 0], c[..., 1], c[..., 2]
+    n2 = c0 * c0 + c1 * c1 + c2 * c2
+    m = torch.stack(
+        [
+            1 + c0 * c0 - c1 * c1 - c2 * c2, 2 * (c0 * c1 - c2),
+            2 * (c1 + c0 * c2),
+            2 * (c2 + c0 * c1), 1 - c0 * c0 + c1 * c1 - c2 * c2,
+            2 * (c1 * c2 - c0),
+            2 * (c0 * c2 - c1), 2 * (c0 + c1 * c2),
+            1 - c0 * c0 - c1 * c1 + c2 * c2,
+        ],
+        dim=-1,
+    ).reshape(c.shape[:-1] + (3, 3))
+    return m / (1.0 + n2)[..., None, None]

@@ -1,8 +1,8 @@
 """Batched RANSAC pieces (torch): sampling, support scores, selection.
 
 Port of the parts of ``privacy_preserving_sfm_tpu/solvers/ransac.py`` that
-the initializer and the triangulator call (the adaptive trial bound, PROSAC
-and the subset prescreen come with the mapper loop).  Semantics follow
+the initializer, the triangulator and the mapper call (PROSAC
+and the subset prescreen come with a caller).  Semantics follow
 the reference framework (``src/optim/ransac.h:78-249``,
 ``loransac.h:54-238``, ``support_measurement.h:43-77``), executed as a
 batch: B hypotheses are generated and scored together.
@@ -19,6 +19,7 @@ samples; the reference's random streams are not reproduced.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -100,3 +101,28 @@ def select_best(models, score: torch.Tensor, num_inliers: torch.Tensor,
                         num_inliers=take(num_inliers),
                         inlier_mask=take(inlier_mask), best_index=best)
 
+
+
+def _integer_pow(x: float, n: int) -> float:
+    """x^n by repeated squaring, the reference's rounding of ``x ** n``."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n:
+            x = x * x
+    return 1.0 if acc is None else acc
+
+
+def num_trials_needed(num_inliers: int, num_valid: int, sample_size: int,
+                      confidence: float = 0.99999, multiplier: float = 3.0,
+                      max_trials: int = 1_000_000) -> float:
+    """Adaptive trial bound ``multiplier * log(1 - conf) / log(1 -
+    ratio^m)`` (``ransac.h:158-176``), on the host in float64; callers use
+    it to stop between hypothesis batches."""
+    ratio = min(max(num_inliers / max(num_valid, 1), 1e-9), 1.0)
+    nom = math.log(max(1.0 - confidence, 1e-300))
+    denom = math.log1p(-min(_integer_pow(ratio, sample_size), 1.0 - 1e-12))
+    trials = multiplier * nom / min(denom, -1e-300)
+    return min(trials, max_trials)

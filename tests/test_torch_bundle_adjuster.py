@@ -131,6 +131,10 @@ def test_port_imports_without_jax():
         "    incremental_triangulator)\n"
         "from privacy_preserving_sfm_torch.ops import (\n"
         "    lie, lines_np, triangulation as tri_ops)\n"
+        "from privacy_preserving_sfm_torch.ops import e3q3, polynomial\n"
+        "from privacy_preserving_sfm_torch.solvers import p6l\n"
+        "from privacy_preserving_sfm_torch.sfm import controller\n"
+        "from privacy_preserving_sfm_torch.utils import config\n"
         "import tempfile\n"
         "import torch\n"
         "torch.set_num_threads(2)\n"
@@ -144,6 +148,10 @@ def test_port_imports_without_jax():
         "                d + '/s.db', '--output_path', d + '/init',\n"
         "                '--device', 'cpu'])\n"
         "assert len(m.rec.reg_image_ids) == 4 and m.rec.points3d\n"
+        "synthetic.synthetic_line_database(d + '/m.db', 8, 400, seed=2)\n"
+        "c = ppsfm.main(['mapper', '--database_path', d + '/m.db',\n"
+        "                '--output_path', d + '/sparse', '--device', 'cpu'])\n"
+        "assert [r.num_registered() for r in c.reconstructions] == [8]\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"
