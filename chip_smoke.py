@@ -31,16 +31,30 @@ database (phase ``line_init``): twice on the card (byte-identical models,
 4 images, at least ``MIN_INIT_POINTS`` points, poses within
 ``LINE_INIT_BAR`` of the rendering's truth), once on the CPU (the same
 images, within the bar) and once under torch.profiler; ``mapper`` on that
-database (phase ``mapper``, cell Mapper-1600): twice on the card, the
-second under torch.profiler split by the ``mapper.*`` and ``init.*``
-spans (one model, all 16 images, poses within ``MAPPER_BAR``,
+database (phase ``mapper``, cell Mapper-1600): twice on the card (one
+model, all 16 images, poses within ``MAPPER_BAR``,
 byte-identical models, ``schur_gram`` and ``schur_pcg`` launched, and
 the first run's largest local and global BA solved again with the
 kernels and with the plain versions, every Gram and PCG call of the
 solve checked against its plain version on the same inputs); and
-``automatic_reconstructor`` in a fresh process on 12 freshly rendered
-640 x 480 box images (phase ``auto``: all registered in one model within
-``AUTO_BAR``, ``match_top2`` launched).  Prints one line
+``hierarchical_mapper --block_size 8 --overlap 3`` on that database
+(phase ``hier``, cell Hier-1600): with one worker and with two spawned
+workers on the card (byte-identical models, every block's snapshot from
+the card, all 16 images within ``HIER_BAR``, ``schur_gram`` and
+``schur_pcg`` launched); ``automatic_reconstructor`` in a fresh process on
+12 freshly rendered 640 x 480 box images (phase ``auto``: all registered
+in one model within ``AUTO_BAR``, ``match_top2`` launched); and the
+uncalibrated path (phase ``uncal``, cell Uncal-1600): 12 box images at
+1,600 x 1,200 rendered with a focal 12 % under the extractor's heuristic
+and no calibration sidecar, extracted and matched on the card, then the
+controller with ``ba_refine_focal_length`` twice (one model, every image within ``UNCAL_BAR``, every focal
+within ``UNCAL_FOCAL_BAR`` of the truth, every BA on the intrinsics
+route, no Schur kernel launched, byte-identical models, the largest
+intrinsics BA solved again in float32, bit-equal, and held against
+float64), and one focal search at the model's size on the card against
+the CPU.  With ``PPSFM_SMOKE_PROFILE=1``, phase ``mapper``'s and phase
+``uncal``'s second run and phase ``hier``'s one-worker run go under
+torch.profiler, split by span.  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
@@ -167,6 +181,35 @@ MAPPER_BAR = (0.25, 1.0)
 MAPPER_BA_TOL = (0.01, 1.75e-4)
 AUTO = (12, (480, 640), 1)
 AUTO_BAR = (0.25, 1.0)
+# hierarchical_mapper on the extractor's database (cell Hier-1600) with
+# HIER = (block size, overlap): 3 blocks of 8, 8 and 6 images.  Its bar is
+# MAPPER_BAR's kind: twice the reference CLI's errors on a CPU-written
+# database of the same rendering, floored at 0.25 and 1 deg
+# (tests/torch_mapper_bar.py hier: 16 of 16 images in one model, 6,137
+# points, 0.02973 and 0.11863 deg).
+HIER = (8, 3)
+HIER_BAR = (0.25, 1.0)
+# PPSFM_SMOKE_PROFILE=1 runs phase mapper's and phase uncal's second run
+# and phase hier's one-worker run under torch.profiler, split by span
+# (``span_split``): about 7 minutes more (the three runs launch ~0.9, ~2
+# and ~0.9 M kernels; stopping the profiler and reading its events take
+# most of it).
+PROFILE = os.environ.get("PPSFM_SMOKE_PROFILE") == "1"
+# The uncalibrated path (cell Uncal-1600): UNCAL = (images, (H, W), render
+# seed) box images rendered with the true focal UNCAL_FOCAL, 1,920 / 1.12 =
+# 1,714.3 px, so that the heuristic 1.2 x 1,600 = 1,920 is 12 % high (the
+# ratio of tests/test_e2e_synthetic.py's TestUncalibrated, 560 against
+# 500).  The reference controller with ba_refine_focal_length on a
+# CPU-written database of the same rendering (tests/torch_mapper_bar.py
+# uncal): 12 of 12 images in one model, 5,718 points, 0.01375 and 0.03578
+# deg, focal 1,713.95 (relative error 0.00020).  Bars: at least its image
+# count; twice its pose errors, floored at 0.25 and 1 deg; twice its focal
+# error, floored at 3 % (TestUncalibrated's 15 / 500).
+UNCAL = (12, (1200, 1600), 2)
+UNCAL_FOCAL = 1714.3
+UNCAL_MIN_IMAGES = 12
+UNCAL_BAR = (0.25, 1.0)
+UNCAL_FOCAL_BAR = 0.03
 
 
 def check(ok, msg):
@@ -2162,14 +2205,14 @@ def mapper_shape_times(card, gram, pcg, C, gram_args, pcg_args, reps=5):
 
 def phase_mapper(device, card, workdir, db):
     """``mapper`` on phase ``extractor``'s database (cell Mapper-1600)
-    twice on the card, the second run under torch.profiler split by the
-    mapper's ``mapper.*`` and ``init.*`` spans: one model with every image
-    registered, the poses within MAPPER_BAR of the rendering's truth, the
-    two models byte-identical, the first run's largest local and global
-    BA held against the plain route (``check_mapper_ba``), and
-    ``schur_gram`` and ``schur_pcg`` launched in the profiled run.
-    Returns the first run's wall, the profiled run's launches and the
-    kernels' largest errors in those BAs."""
+    twice on the card (the second run under torch.profiler split by the
+    mapper's ``mapper.*`` and ``init.*`` spans when PROFILE is set): one
+    model with every image registered, the poses within MAPPER_BAR of the
+    rendering's truth, the two models byte-identical, the first run's
+    largest local and global BA held against the plain route
+    (``check_mapper_ba``), and ``schur_gram`` and ``schur_pcg`` launched
+    in the second run.  Returns the first run's wall, the second run's
+    launches and the kernels' largest errors in those BAs."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
@@ -2224,11 +2267,14 @@ def phase_mapper(device, card, workdir, db):
     solves.clear()
     torch.cuda.empty_cache()
     out_b = os.path.join(workdir, "mapper_b")
-    span_split("mapper", card, lambda: run(out_b),
-               prefixes=("mapper.", "init."))
+    if PROFILE:
+        span_split("mapper", card, lambda: run(out_b),
+                   prefixes=("mapper.", "init."))
+    else:
+        run(out_b)
     same = _model_bytes(os.path.join(out_a, "0")) == _model_bytes(
         os.path.join(out_b, "0"))
-    phase("mapper", f"profiled run's launches {dict(launches)}; two card "
+    phase("mapper", f"second run's launches {dict(launches)}; two card "
           f"runs byte-identical={same}")
     check(same, "two card runs wrote different models")
     check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
@@ -2282,6 +2328,390 @@ def phase_auto(device, card, workdir):
           "automatic_reconstructor's poses miss the bar")
     check(launches["match_top2"] > 0, "match_top2 was not launched")
     return launches
+
+
+def phase_hier(device, card, workdir, db):
+    """``hierarchical_mapper --block_size 8 --overlap 3`` on phase
+    ``extractor``'s database (cell Hier-1600), once with one worker (this
+    process) and once with two spawned workers on the same card: one
+    model with every image within HIER_BAR, the two models
+    byte-identical, every block's snapshot from the card, ``schur_gram``
+    and ``schur_pcg`` launched in the one-worker run.  Returns that run's
+    launches."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.utils.synthetic import read_gt_poses
+
+    gt = read_gt_poses(os.path.join(workdir, "images", "gt_poses.txt"))
+    runs = {}
+    for workers in (1, 2):
+        out = os.path.join(workdir, f"hier_{workers}")
+        for name in build.LAUNCHES:
+            build.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = {}
+
+        def go():
+            t0 = time.perf_counter()
+            got["stats"] = ppsfm.main([
+                "hierarchical_mapper", "--database_path", db, "--output_path",
+                out, "--device", device.type, "--block_size", str(HIER[0]),
+                "--overlap", str(HIER[1]), "--num_workers", str(workers)])
+            torch.cuda.synchronize()
+            got["wall"] = time.perf_counter() - t0
+
+        if PROFILE and workers == 1:
+            span_split("hier", card, go, prefixes=("mapper.", "init."))
+        else:
+            go()
+        stats, wall = got["stats"], got["wall"]
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(stats["model"] is not None, "no model")
+        check(sorted(os.listdir(out)) == ["0"], "not one model")
+        rec, names, rot, dirn = model_errors(os.path.join(out, "0"), gt)
+        devices = [snap["device"] for snap in stats["snapshots"]]
+        blocks = "; ".join(
+            f"{snap['seconds']:.2f} s (" + ", ".join(
+                f"{k} {snap['profile'].get(k, 0.0):.2f}" for k in (
+                    "init", "register", "local_refine", "global_refine"))
+            + f"), schur_gram {snap['launches']['schur_gram']}"
+            for snap in stats["snapshots"])
+        phase("hier", f"hierarchical_mapper --device {device.type} "
+              f"--block_size {HIER[0]} --overlap {HIER[1]} --num_workers "
+              f"{workers}: wall {wall:.3f} s, {len(names) / wall:.3f} "
+              f"images registered/s; blocks {stats['reconstructed']} of "
+              f"{stats['blocks']} reconstructed, {stats['merged']} merged, "
+              f"on {devices}; blocks' wall and launches: {blocks}; merged "
+              f"{stats['merged_points']} points, refined "
+              f"{stats['refined_points']} points, mean reproj "
+              f"{rec.compute_mean_reprojection_error():.3f} px; joint "
+              f"refinement {stats['refine_seconds']:.3f} s; rotation error {rot:.4f} deg, translation direction "
+              f"error {dirn:.4f} deg (bar {HIER_BAR[0]} and {HIER_BAR[1]} "
+              f"deg); this process's peak device memory "
+              f"{peak / 2**20:.1f} MiB, launches {launches} | {card}")
+        check(devices == [device.type] * stats["blocks"],
+              f"a block ran on another device: {devices}")
+        check(len(names) == len(gt), f"{len(names)} of {len(gt)} images "
+              "registered")
+        check(rot <= HIER_BAR[0] and dirn <= HIER_BAR[1],
+              "the hierarchical mapper's poses miss the bar")
+        runs[workers] = (out, launches)
+    same = _model_bytes(os.path.join(runs[1][0], "0")) == _model_bytes(
+        os.path.join(runs[2][0], "0"))
+    phase("hier", f"one and two workers byte-identical={same}")
+    check(same, "one and two workers wrote different models")
+    launches = runs[1][1]
+    check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
+          "the hierarchical mapper launched no schur_gram or no schur_pcg")
+    return launches
+
+
+@contextlib.contextmanager
+def intrinsics_capture(record):
+    """Inside it, the mapper's largest intrinsics BA is kept in
+    ``record["largest"]`` on the host as (valid observations, problem,
+    camera model, options, result); every route ``_run_ba`` took is
+    appended to ``record["routes"]`` and every focal search to
+    ``record["searches"]``."""
+    from privacy_preserving_sfm_torch.optim import ba_intrinsics
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+
+    solve = ba_intrinsics.bundle_adjust_intrinsics
+    run_ba = IncrementalMapper._run_ba
+    search = IncrementalMapper._focal_search
+    record.setdefault("routes", [])
+    record.setdefault("searches", [])
+
+    def keep(problem, camera_model, options):
+        out = solve(problem, camera_model, options)
+        nobs = int((problem.base.obs_weight > 0).sum())
+        if nobs > record.get("largest", (0,))[0]:
+            record["largest"] = (
+                nobs, type(problem)(to_device(problem.base, "cpu"),
+                                    *to_device(problem[1:], "cpu")),
+                camera_model, options,
+                tuple(to_device(out[:4], "cpu")) + out[4:])
+        return out
+
+    def routes(self, *args, **kwargs):
+        out = run_ba(self, *args, **kwargs)
+        record["routes"].append(self.last_route)
+        return out
+
+    def searches(self, options, image_id, corrs):
+        before = len(self.focal_searches)
+        search(self, options, image_id, corrs)
+        record["searches"].append(
+            (image_id, self.focal_searches[before:]))
+
+    ba_intrinsics.bundle_adjust_intrinsics = keep
+    IncrementalMapper._run_ba = routes
+    IncrementalMapper._focal_search = searches
+    try:
+        yield record
+    finally:
+        ba_intrinsics.bundle_adjust_intrinsics = solve
+        IncrementalMapper._run_ba = run_ba
+        IncrementalMapper._focal_search = search
+
+
+def check_intrinsics_ba(device, card, largest):
+    """The mapper's largest intrinsics BA solved again on the card in
+    float32 (bit-equal to the mapper's solve) and in float64: final cost
+    within 1e-3, every refined focal within 1e-4 relative and every free
+    pose within MAPPER_BA_TOL of the float64 solve."""
+    import torch
+
+    from privacy_preserving_sfm_torch.optim import ba_intrinsics
+
+    nobs, problem, model, options, (q0, t0, X0, i0, s0) = largest
+    problem = type(problem)(to_device(problem.base, device),
+                            *to_device(problem[1:], device))
+    t_start = time.perf_counter()
+    q, t, X, intr, s = ba_intrinsics.bundle_adjust_intrinsics(
+        problem, model, options)
+    torch.cuda.synchronize()
+    dt32 = time.perf_counter() - t_start
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               ((q, q0), (t, t0), (X, X0), (intr, i0))) and s == s0
+
+    def f64(tup):
+        return tup._replace(**{
+            k: v.double() for k, v in tup._asdict().items()
+            if isinstance(v, torch.Tensor) and v.is_floating_point()})
+
+    p64 = f64(problem)._replace(base=f64(problem.base))
+    t_start = time.perf_counter()
+    q64, t64, _, i64, s64 = ba_intrinsics.bundle_adjust_intrinsics(
+        p64, model, options)
+    torch.cuda.synchronize()
+    dt64 = time.perf_counter() - t_start
+    free = (problem.base.cam_dof_mask.sum(1) > 0).cpu().numpy()
+    rel = abs(s.final_cost - s64.final_cost) / s64.final_cost
+    refined = problem.intr_mask > 0
+    focal = float(((intr.double() - i64).abs() / i64.abs())[refined].max())
+    rot, ctr = pose_differences(q, t, q64, t64, free)
+    C, U = problem.base.qvecs.shape[0], problem.intr_params.shape[0]
+    phase("uncal", f"largest intrinsics BA (C={C}, {int(free.sum())} free,"
+          f" P={problem.base.points3d.shape[0]}, U={U}, {nobs} "
+          f"observations) solved again: float32 bit-equal to the "
+          f"mapper's={same} ({s.num_iterations} it, {dt32:.3f} s); final "
+          f"cost float32 {s.final_cost!r}, float64 {s64.final_cost!r} "
+          f"({s64.num_iterations} it, {dt64:.3f} s), initial "
+          f"{s.initial_cost!r}: rel diff {rel:.3e} (tol 1e-3); focal "
+          f"float32 {intr[0, 0].item()!r} float64 {i64[0, 0].item()!r}, "
+          f"max rel diff {focal:.3e} (tol 1e-4); poses against float64 "
+          f"rotation {rot:.3e} deg (tol {MAPPER_BA_TOL[0]}), centre "
+          f"{ctr:.3e} (tol {MAPPER_BA_TOL[1]}) | {card}")
+    check(same, "the intrinsics BA solved again gave another result")
+    check(rel <= 1e-3, "the intrinsics BA's final cost disagrees with "
+          "float64")
+    check(focal <= 1e-4, "the intrinsics BA's focal disagrees with float64")
+    check(rot <= MAPPER_BA_TOL[0] and ctr <= MAPPER_BA_TOL[1],
+          "the intrinsics BA's poses disagree with float64")
+
+
+def focal_search_card_cpu(device, card, db, rec):
+    """One focal search at the model's size, on the card and on the CPU on
+    the same draws (a fresh mapper on a copy of the model, its ``_rng``
+    seeded alike, the first registered image's correspondences): every
+    candidate's inlier count within max(2, 1 % of N) of the CPU's, the
+    winner with at least ``abs_pose_min_num_inliers``.  Prints the time,
+    the card's peak and both winners."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.models.database_cache import (
+        DatabaseCache,
+    )
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper, MapperOptions,
+    )
+    from privacy_preserving_sfm_torch.solvers import p6l
+
+    with Database(db) as d:
+        cache = DatabaseCache.load(d, 15)
+    options = MapperOptions()
+    estimate = p6l.estimate_pose_candidates
+    found = {}
+
+    def search(dev):
+        model = copy.deepcopy(rec)
+        mapper = IncrementalMapper(dev, torch.float32, cache)
+        mapper.begin_reconstruction(model)
+        mapper._rng = np.random.default_rng(1)
+        iid = sorted(model.reg_image_ids)[0]
+        cid = model.images[iid].camera_id
+        corrs = mapper.correspondences_2d3d(options, iid)
+
+        def keep(*args):
+            out = estimate(*args)
+            found[dev.type] = np.where(out.success.cpu().numpy(),
+                                       out.num_inliers.cpu().numpy(), -1)
+            return out
+
+        p6l.estimate_pose_candidates = keep
+        try:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mapper._focal_search(options, iid, corrs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            p6l.estimate_pose_candidates = estimate
+        return (len(corrs), float(rec.cameras[cid].params[0]),
+                float(model.cameras[cid].params[0]), dt)
+
+    n, f0, f_card, dt_card = search(device)
+    peak = torch.cuda.max_memory_allocated()
+    _, _, f_cpu, dt_cpu = search(torch.device("cpu"))
+    diff = int(np.abs(found[device.type] - found["cpu"]).max())
+    best = int(found[device.type].max())
+    phase("uncal", f"one focal search at the model's size "
+          f"({options.num_focal_length_samples} candidates x "
+          f"{max(256, options.num_hypotheses // 4)} hypotheses, N = {n}): "
+          f"card {dt_card:.3f} s, peak device memory {peak / 2**20:.1f} "
+          f"MiB; CPU {dt_cpu:.3f} s; inlier counts by candidate (card) "
+          f"{found[device.type].tolist()}, largest difference from the "
+          f"CPU's {diff} (tol {max(2, n // 100)}); focal {f0:.2f} -> card "
+          f"{f_card:.2f}, CPU {f_cpu:.2f} | {card}")
+    check(diff <= max(2, n // 100),
+          "the focal search's inlier counts on the card and the CPU differ")
+    check(best >= options.abs_pose_min_num_inliers,
+          "the focal search's best candidate has too few inliers")
+    torch.cuda.empty_cache()
+
+
+def phase_uncal(device, card, workdir):
+    """The uncalibrated path (cell Uncal-1600): UNCAL box images rendered
+    with the true focal UNCAL_FOCAL and no camera sidecar, so
+    ``feature_extractor`` takes the heuristic 1.2 x 1,600 with no prior;
+    ``exhaustive_matcher``; then the controller with
+    ``ba_refine_focal_length`` in this process twice (the second under
+    torch.profiler when PROFILE is set): one model with every image,
+    poses within UNCAL_BAR, every camera's focal within UNCAL_FOCAL_BAR of
+    the truth, every BA on the intrinsics route, no Schur kernel launched,
+    byte-identical models, the largest intrinsics BA held against float64
+    (``check_intrinsics_ba``); and one focal search at the model's size
+    on the card against the CPU (``focal_search_card_cpu``)."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.sfm.controller import (
+        ControllerOptions, IncrementalMapperController,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        read_gt_poses, render_dataset,
+    )
+
+    n, (h, w), seed = UNCAL
+    images = os.path.join(workdir, "uncal_images")
+    render_dataset(images, n, w, h, f=UNCAL_FOCAL, seed=seed, scene="box")
+    for name in os.listdir(images):
+        if name.endswith(".camera_model.txt"):
+            os.remove(os.path.join(images, name))
+    db = os.path.join(workdir, "uncal.db")
+    t0 = time.perf_counter()
+    ppsfm.main(["feature_extractor", "--database_path", db, "--image_path",
+                images, "--device", device.type])
+    ppsfm.main(["exhaustive_matcher", "--database_path", db, "--device",
+                device.type])
+    torch.cuda.synchronize()
+    t_front = time.perf_counter() - t0
+    with Database(db) as d:
+        cams = d.read_cameras()
+    heuristic = 1.2 * max(w, h)
+    check(len(cams) == 1 and all(
+        not c.get("prior_focal_length", True)
+        and abs(c["params"][0] - heuristic) < 1e-6 for c in cams.values()),
+        f"the extractor did not take the heuristic focal: {cams}")
+    gt = read_gt_poses(os.path.join(images, "gt_poses.txt"))
+
+    def run(out):
+        for name in build.LAUNCHES:
+            build.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl = IncrementalMapperController(
+            ControllerOptions(ba_refine_focal_length=True),
+            database_path=db, device=device, dtype=torch.float32)
+        recs = ctrl.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(recs) == 1, f"{len(recs)} models, not one")
+        recs[0].write_text(os.path.join(out, "0"))
+        return ctrl, recs[0], wall, dict(build.LAUNCHES)
+
+    peaks, record = {}, {}
+    out_a = os.path.join(workdir, "uncal_a")
+    with mapper_span_peaks(peaks), intrinsics_capture(record):
+        ctrl, rec, wall, launches = run(out_a)
+    rec, names, rot, dirn = model_errors(os.path.join(out_a, "0"), gt)
+    focals = {cid: float(c.params[0]) for cid, c in rec.cameras.items()
+              if any(img.camera_id == cid and img.registered
+                     for img in rec.images.values())}
+    worst = max(abs(f / UNCAL_FOCAL - 1) for f in focals.values())
+    tot = ctrl.profiler.totals
+    top = ", ".join(f"{k} {tot[k]:.3f} s" for k in (
+        "init", "register", "triangulate", "local_refine", "global_refine"))
+    ba_solve = sum(v for k, v in tot.items() if k.endswith("/ba_solve"))
+    routes = {tuple(r) for r in record["routes"]}
+    phase("uncal", f"{n} box images {w}x{h} (seed {seed}, true focal "
+          f"{UNCAL_FOCAL}, no sidecar: heuristic {heuristic}); extractor "
+          f"and matcher {t_front:.2f} s; controller with "
+          f"ba_refine_focal_length: wall {wall:.3f} s, "
+          f"{len(names) / wall:.3f} images registered/s, {len(names)} "
+          f"images, {len(rec.points3d)} points, mean reproj "
+          f"{rec.compute_mean_reprojection_error():.3f} px; phase times "
+          f"{top}; intrinsics BA solves {ba_solve:.3f} s "
+          f"({100 * ba_solve / wall:.1f} % of the wall) over "
+          f"{len(record['routes'])} BAs, routes {sorted(routes)}; focal "
+          f"{heuristic} -> {sorted(focals.values())} (max rel err "
+          f"{worst:.5f}, bar {UNCAL_FOCAL_BAR}); focal searches run "
+          f"{record['searches']}; rotation error {rot:.4f} deg, "
+          f"translation direction error {dirn:.4f} deg (bar "
+          f"{UNCAL_BAR[0]} and {UNCAL_BAR[1]} deg); launches {launches} | "
+          f"{card}")
+    phase("uncal", "peak device memory by span: " + ", ".join(
+        f"{k} {v / 2**20:.1f} MiB" for k, v in sorted(
+            peaks.items(), key=lambda kv: -kv[1])) + f" | {card}")
+    check(len(names) >= UNCAL_MIN_IMAGES, f"{len(names)} images "
+          f"registered, fewer than {UNCAL_MIN_IMAGES}")
+    check(rot <= UNCAL_BAR[0] and dirn <= UNCAL_BAR[1],
+          "the uncalibrated mapper's poses miss the bar")
+    check(worst <= UNCAL_FOCAL_BAR, "a focal misses the bar")
+    check(routes == {("intrinsics", False)},
+          f"a BA took another route: {routes}")
+    check(launches["schur_gram"] == 0 and launches["schur_pcg"] == 0,
+          "a Schur kernel was launched on the intrinsics path")
+    check_intrinsics_ba(device, card, record.pop("largest"))
+
+    focal_search_card_cpu(device, card, db, rec)
+
+    out_b = os.path.join(workdir, "uncal_b")
+    if PROFILE:
+        span_split("uncal", card, lambda: run(out_b),
+                   prefixes=("mapper.", "init.", "ba_intr."))
+    else:
+        run(out_b)
+    same = _model_bytes(os.path.join(out_a, "0")) == _model_bytes(
+        os.path.join(out_b, "0"))
+    phase("uncal", f"two card runs byte-identical={same}")
+    check(same, "two card runs wrote different models")
 
 
 def device_split(name, card, run, kernel, top=6):
@@ -2362,9 +2792,15 @@ def main() -> int:
             _, mapper_launches, mapper_errors = timed(
                 "mapper", phase_mapper, device, card, workdir,
                 os.path.join(workdir, "fresh.db"))
+            torch.cuda.empty_cache()
+            hier_launches = timed("hier", phase_hier, device, card, workdir,
+                                  os.path.join(workdir, "fresh.db"))
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             auto_launches = timed("auto", phase_auto, device, card, workdir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            timed("uncal", phase_uncal, device, card, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("dense_implicit", phase_dense_implicit, device, card,
@@ -2381,10 +2817,12 @@ def main() -> int:
              replaces=f"{ref}:383", also_replaces=f"{ref}:500",
              launches=launches["schur_gram"],
              mapper_launches=mapper_launches["schur_gram"],
+             hier_launches=hier_launches["schur_gram"],
              **mapper_errors["schur_gram"], **gram_stats),
         dict(name="schur_pcg", route="cuda", source=src + "schur_pcg.cu",
              replaces=f"{ref}:93", launches=launches["schur_pcg"],
              mapper_launches=mapper_launches["schur_pcg"],
+             hier_launches=hier_launches["schur_pcg"],
              **mapper_errors["schur_pcg"], **pcg_stats),
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",

@@ -28,15 +28,18 @@ Ported subcommands, with the flags of the reference CLI
   it prints the phase profile, the images registered per second and, on
   CUDA, the peak device memory, and writes each model with its
   ``project.ini``;
+* ``hierarchical_mapper`` (``:377-409, 615-621``): the block-parallel
+  mapper (``sfm/hierarchical.py``), blocks of ``--block_size`` images
+  sharing ``--overlap``, reconstructed in ``--num_workers`` spawned
+  processes on ``--device``, chain-merged and refined together;
 * ``image_filterer`` (``:441-450, 629-634``) and ``project_generator``
   (``:503-511, 656-661``), host code with no ``--device``;
 * ``automatic_reconstructor`` (``:514-539, 663-670``): the extractor, the
   matcher and the mapper in one process under a quality preset.
 
-13 of the reference's 15 subcommands; ``hierarchical_mapper`` and
-``model_viewer`` are not ported.  Device work runs on ``--device``
-(default ``cuda``; asking for CUDA without a CUDA device is an error,
-never a silent CPU run).
+14 of the reference's 15 subcommands; ``model_viewer`` is not ported.
+Device work runs on ``--device`` (default ``cuda``; asking for CUDA
+without a CUDA device is an error, never a silent CPU run).
 """
 
 from __future__ import annotations
@@ -492,6 +495,51 @@ def cmd_mapper(args):
     return ctrl
 
 
+def cmd_hierarchical_mapper(args):
+    """The block-parallel mapper (``sfm/hierarchical.py``; reference
+    ``ppsfm.py:377-409``) on the database, in float32: blocks in
+    ``--num_workers`` spawned processes on ``--device``.  Prints the
+    images registered per second and, on CUDA, the peak device memory of
+    this process; writes the model to ``OUTPUT/0``.  Returns the stats of
+    ``hierarchical_map`` with the model under "model"."""
+    import time
+
+    from privacy_preserving_sfm_torch.sfm.controller import ControllerOptions
+    from privacy_preserving_sfm_torch.sfm.hierarchical import (
+        HierarchicalOptions, hierarchical_map,
+    )
+    from privacy_preserving_sfm_torch.utils.timer import Timer
+
+    device = _device(args.device)
+    timer = Timer()
+    opts = HierarchicalOptions(block_size=args.block_size,
+                               overlap=args.overlap,
+                               num_workers=args.num_workers,
+                               controller=ControllerOptions())
+    stats = {}
+    t0 = time.perf_counter()
+    rec = hierarchical_map(args.database_path, opts, device=device,
+                           dtype=torch.float32, stats=stats)
+    wall = time.perf_counter() - t0
+    stats.update(model=rec, wall=wall)
+    if rec is None:
+        print("  => no model produced")
+        return stats
+    print(f"  => images registered/s: "
+          f"{rec.num_registered() / max(wall, 1e-9):.3f} "
+          f"({rec.num_registered()} images in {wall:.1f}s)")
+    if device.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    out = os.path.join(args.output_path, "0")
+    rec.write_text(out)
+    print(f"  model 0: {rec.num_registered()} images, "
+          f"{len(rec.points3d)} points, "
+          f"mean reproj {rec.compute_mean_reprojection_error():.3f}px")
+    timer.print_minutes()
+    return stats
+
+
 def cmd_image_filterer(args):
     """Filter the points, then the images, of a text model (reference
     ``ppsfm.py:441-450``)."""
@@ -649,6 +697,17 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the mapper: cuda (default) or cpu")
     p.set_defaults(func=cmd_mapper)
+
+    p = sub.add_parser("hierarchical_mapper")
+    _add_db_arg(p)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--block_size", type=int, default=30)
+    p.add_argument("--overlap", type=int, default=5)
+    p.add_argument("--num_workers", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the blocks and the joint "
+                   "refinement: cuda (default) or cpu")
+    p.set_defaults(func=cmd_hierarchical_mapper)
 
     p = sub.add_parser("image_filterer")
     p.add_argument("--input_path", required=True)

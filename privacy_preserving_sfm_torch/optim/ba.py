@@ -73,8 +73,8 @@ class BAOptions(NamedTuple):
     # Explicit Schur only: "bf16" rounds the Schur Gram's operands to
     # bfloat16 (sums stay in the problem's precision); "f32" keeps them.
     schur_precision: str = "f32"
-    # Intrinsics refinement (reference BundleAdjustmentOptions.refine_*);
-    # the port's mapper refuses them until ``ba_intrinsics`` is ported.
+    # Intrinsics refinement (reference BundleAdjustmentOptions.refine_*):
+    # the mapper then solves with ``ba_intrinsics``.
     refine_focal_length: bool = False
     refine_principal_point: bool = False
     refine_extra_params: bool = False
@@ -256,22 +256,32 @@ def block_jacobi_cg(matvec, SJ_inv: torch.Tensor, rhs: torch.Tensor,
 
 
 def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
-                        solve_step):
-    """The LM loop of the reference's ``ba.bundle_adjust`` and
-    ``ba_dense.bundle_adjust_dense`` (``ba.py:359-423``).
+                        solve_step, intrinsics=None):
+    """The LM loop of the reference's ``ba.bundle_adjust``,
+    ``ba_dense.bundle_adjust_dense`` (``ba.py:359-423``) and
+    ``ba_intrinsics.bundle_adjust_intrinsics`` (``ba_intrinsics.py:
+    296-361``).
 
     ``cost_fn(q, t, X)`` is the robust cost; ``build_normal(q, t, X)``
     returns the normal equations as a tuple ending in (gc (C, 6),
     gp (P, 3)); ``solve_step(normal, lam)`` returns the descent steps
-    (dc (C, 6), dp (P, 3)).  The normal equations are rebuilt only after
-    an accepted step (Ceres keeps the Jacobian across rejected ones).  The
-    loop reads the accept flag on the host once per iteration.  Returns
-    (qvecs, tvecs, points3d, BASummary).
+    (dc (C, 6), dp (P, 3)).  With ``intrinsics`` = (intr (U, Pr), mask
+    (U, Pr)) the shared camera intrinsics are a fourth block of variables:
+    ``cost_fn`` and ``build_normal`` take them as a fourth argument, the
+    normal equations end in (gc, gi (U, Pr), gp) and ``solve_step``
+    returns (dc, du (U, Pr), dp).  The normal equations are rebuilt only
+    after an accepted step (Ceres keeps the Jacobian across rejected
+    ones).  The loop reads the accept flag on the host once per
+    iteration.  Returns (qvecs, tvecs, points3d[, intrinsics],
+    BASummary).
     """
     mask = problem.cam_dof_mask
     pmask = problem.point_mask[:, None]
-    q, t, X = problem.qvecs, problem.tvecs, problem.points3d
-    cost0 = cost_fn(q, t, X)
+    x = (problem.qvecs, problem.tvecs, problem.points3d)
+    if intrinsics is not None:
+        x = x + (intrinsics[0],)
+        imask = intrinsics[1]
+    cost0 = cost_fn(*x)
     c = cost0
     lam = float(options.initial_lambda)
     it = stall = rej = 0
@@ -280,21 +290,25 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
     while (it < options.max_iterations and stall < 2
            and lam < options.max_lambda * 0.99):
         if rebuild:
-            normal = build_normal(q, t, X)
+            normal = build_normal(*x)
         grad_done = False
         if options.gradient_tolerance > 0:
-            gc, gp = normal[-2:]
+            gc, gp = normal[-2:] if intrinsics is None else normal[-3::2]
             g_max = torch.maximum((gc * mask).abs().max(),
                                   (gp * pmask).abs().max())
+            if intrinsics is not None:
+                g_max = torch.maximum(g_max, (normal[-2] * imask).abs().max())
             grad_done = bool(g_max <= options.gradient_tolerance)
-        dc, dp = solve_step(normal, lam)
-        q_new, t_new, X_new = _apply_step(q, t, X, -(dc * mask),
-                                          -(dp * pmask))
-        c_new = cost_fn(q_new, t_new, X_new)
+        steps = solve_step(normal, lam)
+        dc, dp = steps[0], steps[-1]
+        x_new = _apply_step(x[0], x[1], x[2], -(dc * mask), -(dp * pmask))
+        if intrinsics is not None:
+            x_new = x_new + (x[3] - steps[1] * imask,)
+        c_new = cost_fn(*x_new)
         accept = bool(c_new < c)
         rel = float((c - c_new) / torch.clamp_min(c, 1e-30))
         if accept:
-            q, t, X, c = q_new, t_new, X_new, c_new
+            x, c = x_new, c_new
             lam = max(lam / 3.0, options.min_lambda)
         else:
             lam = min(lam * 4.0, options.max_lambda)
@@ -311,7 +325,7 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
         it += 1
     summary = BASummary(initial_cost=float(cost0), final_cost=float(c),
                         num_iterations=it, lam=lam)
-    return q, t, X, summary
+    return x + (summary,)
 
 
 # ---------------------------------------------------------------------------

@@ -73,7 +73,8 @@ class ControllerOptions:
     ba_global_max_refinement_change: float = 0.0005
     # Intrinsics refinement (controllers/incremental_mapper.h:79-83), all
     # off: the lift bakes the calibration into the lines.  Setting one
-    # raises until optim/ba_intrinsics is ported (ROADMAP Queue 1 #8).
+    # sends every BA to optim/ba_intrinsics, and the focal one turns on
+    # the mapper's focal search (``run``).
     ba_refine_focal_length: bool = False
     ba_refine_principal_point: bool = False
     ba_refine_extra_params: bool = False

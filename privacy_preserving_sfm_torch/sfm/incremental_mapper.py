@@ -17,13 +17,19 @@ code over ``src/sfm/incremental_mapper.{h,cc}``):
   * ``register_next_image`` (``:570-759``): 2D-3D correspondences through
     the CSR view, P6L RANSAC in up to three hypothesis batches with the
     adaptive trial bound, IRLS refinement, the inlier tracks continued;
+    at the first registration of a camera without a prior focal, with
+    ``abs_pose_refine_focal_length``, the focal search (``:668-714``,
+    reformulated for lifted lines by the reference package);
   * ``find_local_bundle`` / ``adjust_local_bundle`` (``:781-888,
     993-1160``): the 8-step relaxing (triangulation angle, overlap)
     schedule, gauge fixing, variable points (error < 0 or track <= 15)
     with the images that observe them frozen, then merge, complete and
     filter;
   * ``adjust_global_bundle`` (gauge fix + Normalize, ``:893-939``) and
-    ``_run_ba`` over the three solvers (``choose_ba_route``);
+    ``_run_ba`` over the three solvers (``choose_ba_route``), or, with a
+    ``refine_*`` option, the variable-intrinsics solver
+    (``optim/ba_intrinsics``), whose correction is baked into the camera
+    params and every line of the camera;
   * ``filter_images`` / ``filter_points``.
 
 Device work runs on the mapper's ``device`` in its ``dtype``.  Unlike the
@@ -62,6 +68,7 @@ from privacy_preserving_sfm_torch.models.reconstruction import Reconstruction
 from privacy_preserving_sfm_torch.ops import cameras as cam_ops
 from privacy_preserving_sfm_torch.ops import lie_np, lines_np
 from privacy_preserving_sfm_torch.optim import ba as ba_mod
+from privacy_preserving_sfm_torch.optim import ba_intrinsics as ba_intr
 from privacy_preserving_sfm_torch.optim import ba_dense, ba_soa, schur_pcg
 from privacy_preserving_sfm_torch.sfm.incremental_triangulator import (
     IncrementalTriangulator, TriangulatorOptions,
@@ -79,13 +86,8 @@ LOCAL_BA_MAX_TRACK = 15
 # Registered images below which ``filter_images`` keeps every image.
 FILTER_IMAGES_MIN_REG = 20
 
-FOCAL_SEARCH_NOT_PORTED = (
-    "focal-length search at registration needs optim/ba_intrinsics, which "
-    "is not ported yet: ROADMAP.md Queue 1 #8")
-
-
 class BARoute(NamedTuple):
-    solver: str  # "soa" | "dense" | "flat"
+    solver: str  # "soa" | "dense" | "flat" | "intrinsics"
     explicit: bool  # dense only: explicit Schur (else implicit CG)
 
 
@@ -132,8 +134,8 @@ class MapperOptions:
     min_focal_length_ratio: float = 0.1
     max_focal_length_ratio: float = 10.0
     max_extra_param: float = 1.0
-    # Focal search at registration for prior-less cameras; it needs
-    # optim/ba_intrinsics, so setting it raises (ROADMAP Queue 1 #8).
+    # Focal search at the first registration of a camera without a prior
+    # focal (``_focal_search``).
     abs_pose_refine_focal_length: bool = False
     num_focal_length_samples: int = 30
     fix_existing_images: bool = False
@@ -193,6 +195,9 @@ class IncrementalMapper:
         self.num_registrations: Dict[int, int] = {}
         self.num_total_reg_images = 0
         self.num_shared_reg_images = 0
+        # (image id, focal before, focal after, inliers) of every focal
+        # search that moved a focal.
+        self.focal_searches: List[Tuple[int, float, float, int]] = []
         self._rng = np.random.default_rng(0)
 
     def _tick(self, name: str, t0: float) -> float:
@@ -535,9 +540,9 @@ class IncrementalMapper:
         and the IRLS refinement, then continue its inlier tracks
         (``incremental_mapper.cc:570-759``).  Hypothesis batches of
         (max(256, nh / 4), nh, nh) stop once ``num_trials_needed`` (capped
-        at 10,000) is met."""
-        if options.abs_pose_refine_focal_length:
-            raise NotImplementedError(FOCAL_SEARCH_NOT_PORTED)
+        at 10,000) is met.  With ``abs_pose_refine_focal_length``, the first
+        registration of a camera without a prior focal searches the focal
+        first (``_focal_search``)."""
         with self._phase("register"):
             return self._register_next_image(options, image_id)
 
@@ -553,6 +558,11 @@ class IncrementalMapper:
         n = len(corrs)
         if n < max(options.abs_pose_min_num_inliers, 6):
             return False
+        if (options.abs_pose_refine_focal_length
+                and not cam.prior_focal_length
+                and not any(o.registered and o.camera_id == cam.camera_id
+                            for o in self.rec.images.values())):
+            self._focal_search(options, image_id, corrs)
 
         def f(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -604,6 +614,70 @@ class IncrementalMapper:
                 self.rec.add_observation(pid, image_id, line_idx)
                 self.triangulator.modified_point3d_ids.add(pid)
         return True
+
+    def _focal_search(self, options: MapperOptions, image_id: int,
+                      corrs: np.ndarray) -> None:
+        """Pick the focal factor with the best P6L RANSAC support
+        (reference ``incremental_mapper.py:553-629``, after
+        ``incremental_mapper.cc:668-714``): ``num_focal_length_samples``
+        geometric factors s within the focal-ratio band act on the lifted
+        lines as (a, b, c / s) with thresholds ``abs_pose_max_error /
+        (s f0)``, all scored in one batch of max(256, num_hypotheses / 4)
+        hypotheses on shared draws.  The first best factor, when it has
+        ``abs_pose_min_num_inliers`` inliers and is not 1, is baked into
+        the camera and the lines of every image of the camera."""
+        img = self.rec.images[image_id]
+        cam = self.rec.cameras[img.camera_id]
+        S = options.num_focal_length_samples
+        f0 = cam.mean_focal_length()
+        max_dim = max(cam.width, cam.height)
+        lo = options.min_focal_length_ratio * max_dim / f0
+        hi = options.max_focal_length_ratio * max_dim / f0
+        scales = np.geomspace(max(lo, 0.05), min(hi, 20.0), S)
+        cand = np.repeat(img.lines[corrs[:, 0]][None], S, axis=0)
+        cand[:, :, 2] /= scales[:, None]
+
+        def f(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=self.device, dtype=self.dtype)
+
+        gen = torch.Generator().manual_seed(
+            int(self._rng.integers(0, 2 ** 31)))
+        res = p6l.estimate_pose_candidates(
+            gen, f(cand),
+            torch.from_numpy(img.aligned[corrs[:, 0]]).to(self.device),
+            f(np.stack([self.rec.points3d[int(p)].xyz for p in corrs[:, 1]])),
+            f(options.abs_pose_max_error / (scales * f0)),
+            max(256, options.num_hypotheses // 4))
+        inl = np.where(res.success.cpu().numpy(),
+                       res.num_inliers.cpu().numpy(), -1)
+        best = int(np.argmax(inl))
+        if inl[best] < options.abs_pose_min_num_inliers:
+            return  # keep the heuristic focal; registration decides
+        s_best = float(scales[best])
+        if abs(s_best - 1.0) < 1e-6:
+            return
+        new = np.asarray(cam.params, float).copy()
+        for fi in cam_ops.MODELS[cam.model].focal_idxs:
+            new[fi] *= s_best
+        self._bake_intrinsics(cam.camera_id, new)
+        self.focal_searches.append((image_id, f0, f0 * s_best,
+                                    int(inl[best])))
+        print(f"  => Focal search: {f0:.1f} -> {f0 * s_best:.1f} "
+              f"({inl[best]} inliers)")
+
+    def _bake_intrinsics(self, camera_id: int, params: np.ndarray) -> None:
+        """Set the camera's params and move the lines of every image of
+        the camera to their normalized plane (``ba_intrinsics.
+        correct_lines``), then drop the triangulator's line table."""
+        cam = self.rec.cameras[camera_id]
+        old = np.asarray(cam.params, float)
+        for img in self.rec.images.values():
+            if img.camera_id == camera_id and len(img.lines):
+                img.lines = ba_intr.correct_lines(img.lines, old, params,
+                                                  cam.model)
+        cam.params = np.asarray(params, float)
+        self.triangulator.lines_changed()
 
     # -- triangulation wrappers -----------------------------------------
 
@@ -760,18 +834,18 @@ class IncrementalMapper:
         """Assemble the BA problem (``assemble_ba``) and solve it on the
         route of ``choose_ba_route``, recorded in ``last_route``; write
         back the cameras with free dofs and the points with
-        ``point_mask`` > 0.  Returns (solved, observations)."""
+        ``point_mask`` > 0.  With any ``refine_*`` option set the problem
+        goes to ``_run_ba_intrinsics`` instead.  Returns (solved,
+        observations)."""
         t_start = time.perf_counter()
-        if (ba_options.refine_focal_length
-                or ba_options.refine_principal_point
-                or ba_options.refine_extra_params):
-            raise NotImplementedError(
-                "intrinsics refinement (optim/ba_intrinsics) is not ported "
-                "yet: ROADMAP.md Queue 1 #8")
         asm = self.assemble_ba(config_images, const_pose, const_tvec_x,
                                variable_points)
         if asm is None:
             return False, 0
+        if (ba_options.refine_focal_length
+                or ba_options.refine_principal_point
+                or ba_options.refine_extra_params):
+            return self._run_ba_intrinsics(asm, ba_options, t_start)
         route = choose_ba_route(
             self.device.type, len(asm.cam_list), ba_options.schur_mode,
             os.environ.get("PPSFM_BA_PATH", ""),
@@ -791,15 +865,23 @@ class IncrementalMapper:
                     dense, asm.camera_model, ba_options._replace(
                         schur_mode="explicit" if route.explicit
                         else "implicit"))
+        self.last_route = route
+        return self._write_back(asm, q, t, X, summary, t_start, t_assembled)
+
+    def _write_back(self, asm: BAAssembly, q, t, X, summary, t_start: float,
+                    t_assembled: float, finite: bool = True
+                    ) -> Tuple[bool, int]:
+        """Record a solve's times and summary, and write back its free
+        cameras and variable points when they (and, with ``finite``
+        False, the rest of the solve) are finite."""
         q, t, X = (a.cpu().numpy().astype(np.float64) for a in (q, t, X))
         t_solved = time.perf_counter()
         for k, v in (("ba_assemble", t_assembled - t_start),
                      ("ba_solve", t_solved - t_assembled)):
             self.phase_times[k] = self.phase_times.get(k, 0.0) + v
         self.last_summary = summary
-        self.last_route = route
         num_obs = len(asm.obs)
-        if not (np.isfinite(q).all() and np.isfinite(t).all()
+        if not (finite and np.isfinite(q).all() and np.isfinite(t).all()
                 and np.isfinite(X).all()):
             return False, num_obs
         rec = self.rec
@@ -810,6 +892,54 @@ class IncrementalMapper:
         for pid, slot in asm.point_index.items():
             if asm.point_mask[slot] > 0:
                 rec.points3d[pid].xyz = X[slot]
+        return True, num_obs
+
+    def _run_ba_intrinsics(self, asm: BAAssembly,
+                           ba_options: ba_mod.BAOptions,
+                           t_start: float) -> Tuple[bool, int]:
+        """The variable-intrinsics solve (``optim/ba_intrinsics``,
+        reference ``incremental_mapper.py:1093-1166``): one unique camera
+        per camera id, in slot order, with the ``refine_*`` subsets
+        variable; on a finite result the free poses and variable points
+        are written back and, for each refined camera whose params moved,
+        the correction is baked into its params and the lines of every
+        image of the camera.  ``last_route`` is ("intrinsics", False)."""
+        rec = self.rec
+        cam_ids: List[int] = []  # unique camera ids, slot order
+        cam_of_slot = np.zeros(len(asm.cam_list), np.int64)
+        for i, iid in enumerate(asm.cam_list):
+            cid = rec.images[iid].camera_id
+            if cid not in cam_ids:
+                cam_ids.append(cid)
+            cam_of_slot[i] = cam_ids.index(cid)
+        intr = np.stack([rec.cameras[cid].params for cid in cam_ids])
+        intr_mask = np.tile(ba_intr.intr_mask_for_model(
+            asm.camera_model, ba_options.refine_focal_length,
+            ba_options.refine_principal_point,
+            ba_options.refine_extra_params), (len(cam_ids), 1))
+
+        def f(a):
+            return torch.tensor(a, dtype=self.dtype, device=self.device)
+
+        problem = ba_intr.IntrBAProblem(
+            base=asm.problem,
+            cam_of_slot=torch.tensor(cam_of_slot, device=self.device),
+            intr_params=f(intr), intr_mask=f(intr_mask),
+            lift_params=f(intr))
+        t_assembled = time.perf_counter()
+        q, t, X, intr_new, summary = ba_intr.bundle_adjust_intrinsics(
+            problem, asm.camera_model, ba_options)
+        self.last_route = BARoute("intrinsics", False)
+        intr_new = intr_new.cpu().numpy().astype(np.float64)
+        ok, num_obs = self._write_back(asm, q, t, X, summary, t_start,
+                                       t_assembled,
+                                       bool(np.isfinite(intr_new).all()))
+        if not ok:
+            return ok, num_obs
+        for u, cid in enumerate(cam_ids):
+            if (intr_mask[u] > 0).any() and \
+                    not np.allclose(rec.cameras[cid].params, intr_new[u]):
+                self._bake_intrinsics(cid, intr_new[u])
         return True, num_obs
 
     def assemble_ba(self, config_images: Sequence[int], const_pose: Set[int],

@@ -226,13 +226,18 @@ class IncrementalTriangulator:
                 self._tick(f"{phase}_solve", t0)
         return success, inl, xyz
 
-    def _flat_tables(self):
-        """Per-feature line table (static) + per-call pose/param tables.
+    def lines_changed(self):
+        """Drop the line table: an intrinsics bake moved the lines."""
+        self._lines_flat = None
 
-        Lines never change after extraction, so the (total_lines, 3) table
-        is built once; projection matrices/centers/params are refreshed
-        from the live reconstruction each call (cheap: one small matmul
-        per image)."""
+    def _flat_tables(self):
+        """Per-feature line table + per-call pose/param tables.
+
+        Lines change only when the mapper bakes an intrinsics correction
+        into them (``lines_changed``), so the (total_lines, 3) table is
+        built once and after each bake; projection matrices/centers/params
+        are refreshed from the live reconstruction each call (cheap: one
+        small matmul per image)."""
         view = self.view
         if getattr(self, "_lines_flat", None) is None:
             self._lines_flat = np.concatenate(

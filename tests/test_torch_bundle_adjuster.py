@@ -135,6 +135,8 @@ def test_port_imports_without_jax():
         "from privacy_preserving_sfm_torch.solvers import p6l\n"
         "from privacy_preserving_sfm_torch.sfm import controller\n"
         "from privacy_preserving_sfm_torch.utils import config\n"
+        "from privacy_preserving_sfm_torch.optim import ba_intrinsics\n"
+        "from privacy_preserving_sfm_torch.sfm import hierarchical\n"
         "import tempfile\n"
         "import torch\n"
         "torch.set_num_threads(2)\n"
@@ -152,6 +154,11 @@ def test_port_imports_without_jax():
         "c = ppsfm.main(['mapper', '--database_path', d + '/m.db',\n"
         "                '--output_path', d + '/sparse', '--device', 'cpu'])\n"
         "assert [r.num_registered() for r in c.reconstructions] == [8]\n"
+        "h = ppsfm.main(['hierarchical_mapper', '--database_path',\n"
+        "                d + '/m.db', '--output_path', d + '/hier',\n"
+        "                '--block_size', '6', '--overlap', '3',\n"
+        "                '--device', 'cpu'])\n"
+        "assert h['merged'] == 2 and h['model'].num_registered() == 8\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"

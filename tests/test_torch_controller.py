@@ -3,9 +3,10 @@
 the ``project.ini`` the port writes.
 
 The three scenes (clean; 1 px of noise with 15 % wrong matches; two
-disjoint scenes in one database) go through the port's controller on the
-CPU in float32, the CLI's precision, with that test's options and against
-that test's own bars.  The resume (what ``mapper --input_path`` does)
+disjoint scenes in one database) and the uncalibrated one (lines lifted
+with a 12 %-wrong focal, ``ba_refine_focal_length``) go through the
+port's controller on the CPU in float32, the CLI's precision, with that
+test's options and against that test's own bars.  The resume (what ``mapper --input_path`` does)
 seeds a second run with the clean scene's model read back from text.
 The ``project.ini`` files (``project_generator``, every preset) are
 byte-compared with the reference package's ``AllOptions.save``.
@@ -105,6 +106,27 @@ def test_two_disjoint_scenes_give_two_models(tmp_path):
     assert not (reg_sets[0] & reg_sets[1])
     assert {n[0] for n in reg_sets[0]} != {n[0] for n in reg_sets[1]}
     assert all(len(s) >= 6 for s in reg_sets), reg_sets
+
+
+def test_uncalibrated_scene_refines_the_focal(tmp_path):
+    """``test_e2e_synthetic.py``'s TestUncalibrated through the port: lines
+    lifted with a 12 %-wrong focal (560 for a true 500), the controller
+    with ``ba_refine_focal_length`` (every BA on ``ba_intrinsics``, the
+    focal search armed), at that test's bars."""
+    path = str(tmp_path / "uncal.db")
+    qs, ts, _, image_ids = build_synthetic_db(
+        path, np.random.default_rng(7), lift_focal=560.0)
+    options = ControllerOptions(mapper=MapperOptions(**FAST_MAPPER),
+                                ba_refine_focal_length=True, **FAST)
+    ctrl = IncrementalMapperController(options, database_path=path,
+                                       device="cpu", dtype=torch.float32)
+    recs = ctrl.run()
+    assert recs and options.mapper.abs_pose_refine_focal_length
+    rec = max(recs, key=lambda r: r.num_registered())
+    assert rec.num_registered() >= 6, rec.num_registered()
+    assert ate_rmse(rec, qs, ts, image_ids) < 0.10
+    cam = next(iter(rec.cameras.values()))
+    assert abs(cam.params[0] - 500.0) < 15.0, cam.params
 
 
 @pytest.mark.parametrize("quality", ["", "low", "medium", "high",

@@ -13,7 +13,11 @@ as the reference's (read from its ``PPSFM_BA_DUMP``, before padding), one
 local BA on the SoA route agrees with the reference's
 ``bundle_adjust_soa`` to 1e-8, and ``register_next_image`` given the
 reference's ``jax.random`` draws gives the same pose to 1e-8 and the same
-continued tracks.
+continued tracks.  The uncalibrated path: a camera without a prior focal
+searched at its first registration on the reference's draws (same
+factors, inlier counts, winner and baked lines), ``_run_ba_intrinsics``
+(same params, poses and lines to 1e-8), and after a bake the
+triangulator and registration read the new lines and params.
 """
 
 import copy
@@ -29,6 +33,7 @@ from privacy_preserving_sfm_torch.models import database as tdb
 from privacy_preserving_sfm_torch.models import database_cache as tcache
 from privacy_preserving_sfm_torch.ops import lie_np
 from privacy_preserving_sfm_torch.optim import ba as tba
+from privacy_preserving_sfm_torch.optim import ba_intrinsics as tbi
 from privacy_preserving_sfm_torch.optim import ba_soa as tsoa
 from privacy_preserving_sfm_torch.optim import convert
 from privacy_preserving_sfm_torch.sfm import incremental_mapper as tmap
@@ -42,6 +47,7 @@ from privacy_preserving_sfm_tpu.optim import ba as jba
 from privacy_preserving_sfm_tpu.optim import ba_dense as jbd
 from privacy_preserving_sfm_tpu.optim import ba_soa as jsoa
 from privacy_preserving_sfm_tpu.sfm import incremental_mapper as jmap
+from privacy_preserving_sfm_tpu.solvers import p6l as jp6l
 from privacy_preserving_sfm_tpu.solvers import ransac as jransac
 
 torch.set_num_threads(2)
@@ -306,8 +312,187 @@ def test_register_next_image_matches_with_the_reference_draws(scene,
     assert tm.phase_times["register"] > 0
 
 
-def test_focal_search_is_not_ported(pair):
-    jm, tm, ids = pair
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        tm.register_next_image(
-            tmap.MapperOptions(abs_pose_refine_focal_length=True), ids[6])
+def mislift(mapper, image_ids, camera_id, focal, prior):
+    """Give ``image_ids`` the camera ``camera_id`` at ``focal`` (prior
+    focal flag ``prior``) with their lines as a lift at that focal gives
+    them: moved from the true f = 500's normalized plane by
+    ``correct_lines``.  The same numbers in either package."""
+    rec = mapper.rec
+    old = rec.cameras[rec.images[image_ids[0]].camera_id]
+    true = np.array([500.0, 320.0, 240.0])
+    lifted = np.array([focal, 320.0, 240.0])
+    rec.add_camera(type(old)(camera_id=camera_id, model=old.model,
+                             width=old.width, height=old.height,
+                             params=lifted.copy(), prior_focal_length=prior))
+    for iid in image_ids:
+        img = rec.images[iid]
+        img.camera_id = camera_id
+        img.lines = tbi.correct_lines(img.lines, true, lifted, MODEL)
+
+
+def reference_candidate_draws(monkeypatch, record):
+    """The port's focal search on the reference's draws (one batch under
+    the key its seed makes, as ``reference_draws``), its result kept in
+    ``record``."""
+    def estimate(gen, lines, aligned, points, thresh, nh):
+        key = jax.random.PRNGKey(gen.initial_seed())
+        k_sample, k_solve = jax.random.split(key)
+        n = lines.shape[1]
+        n_pad = jmap._bucket(n, 256, growth=4)
+        valid = np.zeros(n_pad, bool)
+        valid[:n] = True
+        idx = jransac.draw_samples(k_sample, n_pad, jnp.asarray(valid), 6, nh)
+        amix = jax.random.normal(k_solve, (3, 3), jnp.float64)
+        out = tp6l.estimate_pose_candidates_with_draws(
+            lines, aligned, points, thresh,
+            torch.from_numpy(np.asarray(idx).astype(np.int64)),
+            torch.from_numpy(np.array(amix)))
+        record.update(thresh=thresh.numpy(), result=out)
+        return out
+
+    monkeypatch.setattr(tp6l, "estimate_pose_candidates", estimate)
+
+
+def record_reference_focal_kernel(jm, n, options, record):
+    """Put in the reference mapper's kernel cache, under the key its
+    ``_focal_search`` looks up, its own vmapped estimator (the same code)
+    with its outputs kept in ``record``."""
+    S = options.num_focal_length_samples
+    nh = max(256, options.num_hypotheses // 4)
+
+    def run(k, ls, al, p, v, th):
+        return jax.vmap(lambda line, t: jp6l.estimate_absolute_pose_from_lines(
+            k, line, al, p, v, t, num_hypotheses=nh))(ls, th)
+
+    kernel = jax.jit(run)
+
+    def keep(*args):
+        out = kernel(*args)
+        record.update(thresh=np.asarray(args[5]), result=out)
+        return out
+
+    jm._jit_pose[("focal", S, jmap._bucket(n, 256, growth=4), nh)] = keep
+
+
+def test_focal_search_matches_with_the_reference_draws(scene, monkeypatch):
+    """The two unregistered images on a camera of their own, no prior
+    focal and lines lifted at f = 560 (true 500); the first registered
+    with ``abs_pose_refine_focal_length`` by both packages on the
+    reference's draws: the focal search runs with the same factors
+    (thresholds), gives the same inlier count for every candidate and the
+    same winner, bakes the same params and the same lines into both
+    images, and the registration that follows gives the same pose."""
+    jm, tm, ids = models(scene)
+    reference_draws(monkeypatch)
+    got, want = {}, {}
+    reference_candidate_draws(monkeypatch, got)
+    for mapper in (jm, tm):
+        mapper.rec.filter_points3d(4.0, 1.5)
+        mislift(mapper, [ids[6], ids[7]], 99, 560.0, prior=False)
+    jopts = jmap.MapperOptions(num_hypotheses=256,
+                               abs_pose_refine_focal_length=True)
+    topts = tmap.MapperOptions(num_hypotheses=256,
+                               abs_pose_refine_focal_length=True)
+    corrs = tm.correspondences_2d3d(topts, ids[6])
+    record_reference_focal_kernel(jm, len(corrs), jopts, want)
+    assert jm.register_next_image(jopts, ids[6])
+    assert tm.register_next_image(topts, ids[6])
+    np.testing.assert_allclose(got["thresh"], want["thresh"], rtol=1e-12)
+    assert len(got["thresh"]) == topts.num_focal_length_samples
+    jr, tr = want["result"], got["result"]
+    inl = np.where(tr.success.numpy(), tr.num_inliers.numpy(), -1)
+    np.testing.assert_array_equal(
+        inl, np.where(np.asarray(jr.success), np.asarray(jr.num_inliers), -1))
+    best = int(np.argmax(inl))
+    assert inl[best] >= topts.abs_pose_min_num_inliers
+    jcam, tcam = jm.rec.cameras[99], tm.rec.cameras[99]
+    np.testing.assert_allclose(tcam.params, jcam.params, rtol=1e-14)
+    assert tm.focal_searches == [(ids[6], 560.0, tcam.params[0],
+                                  int(inl[best]))]
+    assert tcam.params[0] != 560.0 and tcam.params[1:].tolist() == [320, 240]
+    for iid in ids[6:8]:  # every image of the camera is baked
+        np.testing.assert_allclose(tm.rec.images[iid].lines,
+                                   jm.rec.images[iid].lines, rtol=0,
+                                   atol=1e-10)
+    jimg, timg = jm.rec.images[ids[6]], tm.rec.images[ids[6]]
+    np.testing.assert_allclose(timg.qvec, jimg.qvec, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(timg.tvec, jimg.tvec, rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(timg.point3d_ids, jimg.point3d_ids)
+    # A camera with a registered image is not searched again.
+    got.clear()
+    tm.register_next_image(topts, ids[7])
+    assert "thresh" not in got and len(tm.focal_searches) == 1
+
+
+def intrinsics_config(mapper, ids):
+    """The shared camera mis-set to f = 520 with every line lifted there,
+    and a local BA around ``ids[0]`` (``local_config``)."""
+    mapper.rec.filter_points3d(4.0, 1.5)
+    mislift(mapper, list(mapper.rec.images), 98, 520.0, prior=False)
+    return local_config(mapper, tmap.MapperOptions, ids)
+
+
+BA_INTR = dict(max_iterations=50, loss="soft_l1", function_tolerance=0.0,
+               gradient_tolerance=1.0, refine_focal_length=True)
+
+
+def test_run_ba_intrinsics_matches_the_reference(scene):
+    jm, tm, ids = models(scene)
+    config = intrinsics_config(tm, ids)
+    assert intrinsics_config(jm, ids) == config
+    lines_before = {iid: img.lines.copy()
+                    for iid, img in tm.rec.images.items()}
+    ok, num_obs = tm._run_ba(*config, tba.BAOptions(**BA_INTR))
+    assert jm._run_ba(*config, jba.BAOptions(**BA_INTR)) == (True, num_obs)
+    assert ok and tm.last_route == tmap.BARoute("intrinsics", False)
+    assert tm.last_summary.num_iterations > 1
+    jcam, tcam = jm.rec.cameras[98], tm.rec.cameras[98]
+    np.testing.assert_allclose(tcam.params, jcam.params, rtol=1e-11)
+    assert abs(tcam.params[0] - 520.0) > 1.0  # the focal moved
+    assert tcam.params[1:].tolist() == [320.0, 240.0]
+    for iid, timg in tm.rec.images.items():
+        jimg = jm.rec.images[iid]
+        np.testing.assert_allclose(timg.qvec, jimg.qvec, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(timg.tvec, jimg.tvec, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(timg.lines, jimg.lines, rtol=0,
+                                   atol=1e-8)
+        # Every image of the camera was baked, registered or not.
+        assert not np.allclose(timg.lines, lines_before[iid])
+    for pid, pt in tm.rec.points3d.items():
+        np.testing.assert_allclose(pt.xyz, jm.rec.points3d[pid].xyz,
+                                   rtol=0, atol=1e-8)
+
+
+def test_triangulator_and_registration_read_baked_lines(scene, monkeypatch):
+    """After a bake, the triangulator's line and param tables (built
+    before it) and the next registration's lines and threshold are the new
+    ones."""
+    _, tm, ids = models(scene)
+    config = intrinsics_config(tm, ids)
+    tm.triangulator._flat_tables()  # cached before the bake
+    assert tm._run_ba(*config, tba.BAOptions(**BA_INTR))[0]
+    cam = tm.rec.cameras[98]
+    view = tm.cache.view
+    lines, _, _, params = tm.triangulator._flat_tables()
+    np.testing.assert_array_equal(lines, np.concatenate(
+        [tm.rec.images[iid].lines for iid in view.image_ids]))
+    reg = [d for d, iid in enumerate(view.image_ids)
+           if tm.rec.images[iid].registered]
+    np.testing.assert_array_equal(params[reg], np.tile(cam.params,
+                                                       (len(reg), 1)))
+    seen = {}
+    solve = tp6l.estimate_absolute_pose_from_lines
+
+    def spy(gen, lines, aligned, points, thresh, nh):
+        seen.setdefault("lines", lines.numpy().copy())
+        seen.setdefault("thresh", thresh)
+        return solve(gen, lines, aligned, points, thresh, nh)
+
+    monkeypatch.setattr(tp6l, "estimate_absolute_pose_from_lines", spy)
+    options = tmap.MapperOptions(num_hypotheses=256)
+    image_id = tm.find_next_images(options)[0]
+    corrs = tm.correspondences_2d3d(options, image_id)
+    tm.register_next_image(options, image_id)
+    np.testing.assert_array_equal(
+        seen["lines"], tm.rec.images[image_id].lines[corrs[:, 0]])
+    assert seen["thresh"] == options.abs_pose_max_error / cam.params[0]
