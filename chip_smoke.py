@@ -52,9 +52,21 @@ within ``UNCAL_FOCAL_BAR`` of the truth, every BA on the intrinsics
 route, no Schur kernel launched, byte-identical models, the largest
 intrinsics BA solved again in float32, bit-equal, and held against
 float64), and one focal search at the model's size on the card against
-the CPU.  With ``PPSFM_SMOKE_PROFILE=1``, phase ``mapper``'s and phase
-``uncal``'s second run and phase ``hier``'s one-worker run go under
-torch.profiler, split by span.  Prints one line
+the CPU; ``model_viewer --html`` on phase ``mapper``'s model in a fresh
+process (phase ``viewer``: the embedded payload decodes to the model's
+points and registered images; a PNG is written where matplotlib is
+installed and refused with an error naming it elsewhere); and the
+sharded paths of ``parallel/`` in ranks spawned from this script on
+cuda:0 (phase ``parallel``): BA-100 point-sharded in a one-rank NCCL
+world (bit-equal to ``ba.bundle_adjust`` on the card) and in a two-rank
+gloo world sharing the card (the same cameras and summary on both ranks,
+bit-equal run to run, cost within 1e-3 of ``ba.bundle_adjust`` and of a
+float64 run), with the wall, the LM iterations and the all-reduces'
+count and share; then the Matcher cell's 2,016 pairs split over the two
+ranks, ``match_top2.cu`` launched on each, the gathered result equal to
+the unsharded match in every field.  With ``PPSFM_SMOKE_PROFILE=1``,
+phase ``mapper``'s and phase ``uncal``'s second run and phase ``hier``'s
+one-worker run go under torch.profiler, split by span.  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
@@ -73,6 +85,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2714,6 +2727,393 @@ def phase_uncal(device, card, workdir):
     check(same, "two card runs wrote different models")
 
 
+# The sharded BA and matcher run in spawned ranks on cuda:0: a world of
+# one rank on NCCL, and a world of two ranks that share the card through
+# gloo (NCCL takes one rank a card).  A world that outlives its timeout
+# is killed, every rank of it, and fails the phase.
+PARALLEL_TIMEOUT = 300
+PARALLEL_LM = 20
+PARALLEL_CG = 30
+
+
+def parallel_world(n, backend, workdir, device):
+    """Run ``n`` ranks of this script (``--parallel-rank``) on ``device``
+    with ``backend``; fails when a rank fails or the world outlives
+    PARALLEL_TIMEOUT, after killing every rank.  Returns each rank's
+    results (``parallel_rank``)."""
+    import random
+
+    import numpy as np
+
+    while True:  # a free port below the ephemeral range (32768 and up),
+        port = random.randrange(20000, 32000)  # which connections draw on
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+                break
+            except OSError:
+                continue
+    procs, logs = [], []
+    for rank in range(n):
+        log = open(os.path.join(workdir, f"{backend}{n}_rank{rank}.log"),
+                   "w+")
+        logs.append(log)
+        env = dict(os.environ, PPSFM_COORDINATOR=f"127.0.0.1:{port}",
+                   PPSFM_NUM_PROCESSES=str(n), PPSFM_PROCESS_ID=str(rank),
+                   PYTHONPATH=REPO)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             backend, workdir, str(device)], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    failed = False
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            failed = True
+            print(f"[parallel] {backend} rank {rank} of {n} exited "
+                  f"{p.returncode}; its log ends:\n{text[-3000:]}",
+                  flush=True)
+    check(not failed, f"a rank of the {backend} world of {n} failed or "
+          f"outlived {PARALLEL_TIMEOUT} s")
+    return [dict(np.load(os.path.join(workdir, f"{backend}{n}_{r}.npz")))
+            for r in range(n)]
+
+
+def parallel_rank(backend, workdir, device_name):
+    """One rank of phase ``parallel`` (``--parallel-rank``): three solves
+    of the BA-100 problem point-sharded over the world (the first cold,
+    the second for the wall, the third with the all-reduces timed), then,
+    in the gloo world, this rank's block of the exhaustive pairs through
+    ``match_pairs_sharded`` (``match_top2``'s launches counted around that
+    call alone), ``gather_rows``, a digest of the gathered result, and
+    ``match_top2`` timed on the rank's block with the other rank idle.
+    Writes ``<backend><world>_<rank>.npz``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from privacy_preserving_sfm_torch.features import matching
+    from privacy_preserving_sfm_torch.features import matching_kernels
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.parallel import (
+        distributed_ba, multihost, sharded_matching,
+    )
+
+    device = torch.device(device_name)
+    torch.set_num_threads(1)  # ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not multihost.initialize_from_env(backend=backend, device=device):
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(  # a world of one rank
+            backend, init_method="tcp://" + os.environ["PPSFM_COORDINATOR"],
+            world_size=1, rank=0, timeout=multihost.TIMEOUT)
+    group = multihost.global_mesh()
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    out = {}
+    try:
+        data = np.load(os.path.join(workdir, "parallel_ba.npz"))
+        problem = ba_mod.BAProblem(*(torch.from_numpy(data[f]).to(device)
+                                     for f in ba_mod.BAProblem._fields))
+        opts = ba_mod.BAOptions(max_iterations=PARALLEL_LM,
+                                cg_iterations=PARALLEL_CG)
+        sharded, meta = distributed_ba.shard_problem(problem, world)
+        local = multihost.make_global_problem(sharded, meta, group, device)
+        out.update(points_per_shard=meta["points_per_shard"],
+                   obs_per_shard=meta["obs_per_shard"])
+        for k, timed in enumerate((False, False, True)):
+            reducer = distributed_ba.Reducer(group, timed=timed)
+            dist.barrier(group)
+            sync()
+            t0 = time.perf_counter()
+            q, t, X, s = distributed_ba.bundle_adjust_sharded(
+                local, group, str(data["camera_model"]), opts, reducer)
+            sync()
+            out.update({f"wall{k}": time.perf_counter() - t0,
+                        f"q{k}": q.cpu().numpy(), f"t{k}": t.cpu().numpy(),
+                        f"X{k}": multihost.gather_points(X, group)
+                        .cpu().numpy(),
+                        f"summary{k}": np.asarray(s, np.float64),
+                        f"calls{k}": reducer.calls,
+                        f"reduce_s{k}": reducer.seconds})
+        if os.path.exists(os.path.join(workdir, "parallel_match.npz")):
+            m = np.load(os.path.join(workdir, "parallel_match.npz"))
+            desc = torch.from_numpy(m["desc"]).to(device)
+            valid = torch.from_numpy(m["valid"]).to(device)
+            pairs = torch.from_numpy(m["pairs"]).to(device)
+            dist.barrier(group)
+            for name in build.LAUNCHES:
+                build.LAUNCHES[name] = 0
+            sync()
+            t0 = time.perf_counter()
+            res = sharded_matching.match_pairs_sharded(desc, valid, pairs,
+                                                       group)
+            sync()
+            out["match_s"] = time.perf_counter() - t0
+            out["launches"] = build.LAUNCHES["match_top2"]
+            every = sharded_matching.gather_rows(res, group)
+            out["digest"] = np.asarray([hashlib.sha256(
+                getattr(every, f).cpu().numpy().tobytes()).hexdigest()
+                for f in matching.MatchResult._fields])
+            per = pairs.shape[0] // world
+            mine = pairs[rank * per:(rank + 1) * per]
+            a, b = mine[:, 0], mine[:, 1]
+            args = (desc[a], desc[b], valid[a], valid[b])
+            def kernel():
+                return matching_kernels.top2_scores_bidir(*args)
+
+            for turn in range(world):  # one rank at a time on the card
+                dist.barrier(group)
+                if turn == rank and device.type == "cuda":
+                    out["kernel_ms"] = cuda_ms(kernel, 3)
+                elif turn == rank:  # a CPU rehearsal: the plain version
+                    t0 = time.perf_counter()
+                    kernel()
+                    out["kernel_ms"] = 1e3 * (time.perf_counter() - t0)
+            out["pairs_here"] = per
+        np.savez(os.path.join(workdir, f"{backend}{world}_{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(device, card, workdir):
+    """The sharded BA at BA-100's shape (MAIN, float32, PARALLEL_LM LM x
+    PARALLEL_CG CG) in a one-rank NCCL world (bit-equal to
+    ``ba.bundle_adjust`` on the card) and a two-rank gloo world on the same
+    card (the same cameras and summary on both ranks, bit-equal run to
+    run, cost within 1e-3 of ``ba.bundle_adjust`` and of a float64 run);
+    then the sharded matcher at the Matcher cell's shape (MATCHER, all
+    exhaustive pairs split over the two gloo ranks, ``match_top2.cu`` on
+    each) against the unsharded ``match_many_pairs`` on the card, every
+    field equal.  Returns the ranks' ``match_top2`` launches."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from privacy_preserving_sfm_torch.features import matching
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.models.database import Database
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.parallel import sharded_matching
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
+    from privacy_preserving_sfm_torch.utils.synthetic import (
+        synthetic_matching_database, synthetic_model,
+    )
+
+    build.build()  # once here, not once a rank
+    t0 = time.perf_counter()
+    rec = synthetic_model(seed=0, **MAIN)
+    rec.filter_observations_with_negative_depth()
+    mapper = IncrementalMapper(device, torch.float32)
+    mapper.begin_reconstruction(rec)
+    reg = rec.reg_image_ids
+    asm = mapper.assemble_ba(reg, {reg[0]}, {reg[1]})
+    problem, model = asm.problem, asm.camera_model
+    np.savez(os.path.join(workdir, "parallel_ba.npz"), camera_model=model,
+             **{f: x.cpu().numpy() for f, x in problem._asdict().items()})
+    opts = ba_mod.BAOptions(max_iterations=PARALLEL_LM,
+                            cg_iterations=PARALLEL_CG)
+    nobs = problem.obs_cam.shape[0]
+    phase("parallel", f"BA problem: {problem.qvecs.shape[0]} cameras, "
+          f"{problem.points3d.shape[0]} points, {nobs} observations "
+          f"({model}, float32), in {time.perf_counter() - t0:.1f} s")
+
+    ref, walls = None, []
+    for _ in range(2):  # the first call warms the flat solver
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ba_mod.bundle_adjust(problem, model, opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    s32 = ref[3]
+    p64 = ba_mod.BAProblem(*(x.double() if x.is_floating_point() else x
+                             for x in problem))
+    s64 = ba_mod.bundle_adjust(p64, model, opts)[3]
+    phase("parallel", f"ba.bundle_adjust on the card: float32 wall "
+          f"{walls[1]:.3f} s (cold {walls[0]:.3f} s), {s32.num_iterations} "
+          f"LM iterations, cost {s32.initial_cost!r} -> {s32.final_cost!r}; "
+          f"float64 {s64.num_iterations} iterations, cost "
+          f"{s64.final_cost!r} | {card}")
+
+    def same(a, b, keys):
+        return all(np.array_equal(a[k], b[k]) for k in keys)
+
+    def report(label, ranks):
+        r0 = ranks[0]
+        iters = int(r0["summary1"][2])
+        final = float(r0["summary1"][1])
+        share = r0["reduce_s2"] / r0["wall2"]
+        phase("parallel", f"{label}: wall {r0['wall1']:.3f} s (cold "
+              f"{r0['wall0']:.3f} s; ba.bundle_adjust {walls[1]:.3f} s), "
+              f"{iters} LM iterations, {nobs * iters / r0['wall1']:.1f} "
+              f"obs*iter/s, {r0['calls1']} all-reduces, {r0['reduce_s2']:.3f}"
+              f" s of a {r0['wall2']:.3f} s timed solve in them "
+              f"({100 * share:.1f} %), cost {final!r} (float32 "
+              f"{s32.final_cost!r}, float64 {s64.final_cost!r}); shards of "
+              f"{r0['points_per_shard']} points, {r0['obs_per_shard']} "
+              f"observations | {card}")
+        return final
+
+    keys = [f"{k}{i}" for i in range(3) for k in ("q", "t", "X", "summary")]
+    one = parallel_world(1, "nccl", workdir, device)
+    report("one rank, NCCL", one)
+    bit = all(np.array_equal(one[0][f"{k}0"], v.cpu().numpy())
+              for k, v in zip("qtX", ref[:3])) and np.array_equal(
+        one[0]["summary0"], np.asarray(s32, np.float64))
+    repeat = all(same({k: one[0][f"{k}{i}"] for k in ("q", "t", "X",
+                                                       "summary")},
+                      {k: one[0][f"{k}0"] for k in ("q", "t", "X",
+                                                     "summary")},
+                      ("q", "t", "X", "summary")) for i in (1, 2))
+    phase("parallel", f"one rank: bit-equal to ba.bundle_adjust={bit}, "
+          f"its three solves bit-equal={repeat}")
+    check(bit, "a one-rank world differs from ba.bundle_adjust")
+    check(repeat, "a one-rank world's solves differ")
+
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, "parallel.db")
+    scene = synthetic_matching_database(path, seed=0, **MATCHER)
+    with Database(path) as db:
+        desc = np.stack([db.read_descriptors(i) for i in scene.image_ids])
+    valid = np.ones(desc.shape[:2], bool)
+    pairs = sharded_matching.exhaustive_pair_list(len(desc)).astype(np.int64)
+    check(len(pairs) % 2 == 0, "the pair list does not split over 2 ranks")
+    np.savez(os.path.join(workdir, "parallel_match.npz"), desc=desc,
+             valid=valid, pairs=pairs)
+    d, v = torch.from_numpy(desc).to(device), torch.from_numpy(valid).to(
+        device)
+    p = torch.from_numpy(pairs).to(device)
+    parts = [matching.match_many_pairs(d, v, p[i:i + 64])
+             for i in range(0, len(pairs), 64)]
+    full = matching.MatchResult(*(torch.cat(f) for f in zip(*parts)))
+    want = [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest()
+            for f in full]
+    del d, v, p, parts
+    torch.cuda.empty_cache()
+    phase("parallel", f"matcher inputs: {desc.shape[0]} images x "
+          f"{desc.shape[1]} descriptors, {len(pairs)} pairs, the unsharded "
+          f"match on the card in chunks of 64, {int(full.num_matches.sum())}"
+          f" matches, in {time.perf_counter() - t0:.1f} s")
+
+    two = parallel_world(2, "gloo", workdir, device)
+    final = report("two ranks, gloo on one card", two)
+    consistent = same(two[0], two[1], keys)
+    repeat = all(same({k: r[f"{k}{i}"] for k in ("q", "t", "X", "summary")},
+                      {k: r[f"{k}0"] for k in ("q", "t", "X", "summary")},
+                      ("q", "t", "X", "summary"))
+                 for r in two for i in (1, 2))
+    rel32 = abs(final - s32.final_cost) / s32.final_cost
+    rel64 = abs(final - s64.final_cost) / s64.final_cost
+    phase("parallel", f"two ranks: the same on both ranks={consistent}, "
+          f"three solves bit-equal={repeat}, cost rel diff {rel32:.3e} "
+          f"against ba.bundle_adjust float32 and {rel64:.3e} against "
+          f"float64 (tol 1e-3)")
+    check(consistent, "the two ranks returned different results")
+    check(repeat, "the two-rank solves differ run to run")
+    check(rel32 <= 1e-3 and rel64 <= 1e-3,
+          "the two-rank cost is off ba.bundle_adjust's")
+
+    launches = [int(r["launches"]) for r in two]
+    equal = all(list(r["digest"]) == want for r in two)
+    phase("parallel", "sharded matcher, two gloo ranks: " + "; ".join(
+        f"rank {k}: {int(r['pairs_here'])} pairs, match_top2 launches "
+        f"{int(r['launches'])}, match_pairs_sharded {r['match_s']:.3f} s, "
+        f"kernel {r['kernel_ms']:.4f} ms "
+        f"({1e3 * r['kernel_ms'] / r['pairs_here']:.2f} us a pair)"
+        for k, r in enumerate(two)) + f"; gathered result equal to the "
+        f"unsharded one in every field={equal} | {card}")
+    check(all(n > 0 for n in launches),
+          "a rank of the sharded matcher launched no match_top2")
+    check(equal, "the sharded matcher differs from the unsharded one")
+    return sum(launches)
+
+
+def phase_viewer(workdir):
+    """``model_viewer --html`` on phase ``mapper``'s first model in a fresh
+    process: the embedded payload decodes to the model's points (in point
+    id order), its registered images' names and centres and 8 frustum
+    segments an image.  A PNG needs matplotlib: where it is installed the
+    PNG is written, elsewhere the request fails with an error naming it."""
+    import base64
+    import importlib.util
+    import re
+
+    import numpy as np
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+
+    model = os.path.join(workdir, "mapper_a", "0")
+    html = os.path.join(workdir, "viewer.html")
+    cli = [sys.executable, "-m", "privacy_preserving_sfm_torch.exe",
+           "model_viewer", "--input_path", model]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    subprocess.run(cli + ["--html", html], check=True, cwd=REPO, env=env,
+                   timeout=120, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    with open(html) as f:
+        payload = json.loads(re.search(r"const D=(\{.*?\});\n",
+                                       f.read()).group(1))
+
+    def f32(key):
+        return np.frombuffer(base64.b64decode(payload[key]), np.float32)
+
+    rec = Reconstruction.read_text(model)
+    pids = sorted(rec.points3d)
+    reg = [i for i in sorted(rec.images) if rec.images[i].registered]
+    xyz = np.stack([rec.points3d[p].xyz for p in pids]).astype(np.float32)
+    centers = np.stack([rec.images[i].projection_center()
+                        for i in reg]).astype(np.float32)
+    ok = (payload["n_points"] == len(pids)
+          and np.array_equal(f32("xyz").reshape(-1, 3), xyz)
+          and payload["n_images"] == len(reg) == rec.num_registered()
+          and payload["names"] == [rec.images[i].name for i in reg]
+          and np.array_equal(f32("centers").reshape(-1, 3), centers)
+          and f32("frusta").size == len(reg) * 8 * 2 * 3)
+    phase("viewer", f"model_viewer --html: {os.path.getsize(html)} bytes "
+          f"in {wall:.2f} s (fresh process), {payload['n_points']} points "
+          f"and {payload['n_images']} cameras, payload equal to the model="
+          f"{ok}")
+    check(ok, "the viewer's payload differs from the model")
+    png = os.path.join(workdir, "viewer.png")
+    run = subprocess.run(cli + ["--output_path", png], cwd=REPO, env=env,
+                         timeout=300, capture_output=True, text=True)
+    if importlib.util.find_spec("matplotlib") is not None:
+        ok = run.returncode == 0 and os.path.getsize(png) > 1000
+        phase("viewer", f"model_viewer PNG (matplotlib installed): "
+              f"written={ok}")
+        check(ok, f"model_viewer PNG failed: {run.stderr[-2000:]}")
+    else:
+        ok = run.returncode != 0 and "matplotlib" in run.stderr
+        phase("viewer", f"model_viewer PNG without matplotlib: refused "
+              f"with an error naming it={ok}")
+        check(ok, "a PNG without matplotlib did not fail as it should")
+
+
 def device_split(name, card, run, kernel, top=6):
     """``run()`` under torch.profiler: wall, kernel time and busy share,
     ``kernel``'s share of kernel time and the ``top`` device events by
@@ -2780,6 +3180,10 @@ def main() -> int:
                 workdir)["match_top2"]
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
+            parallel_launches = timed("parallel", phase_parallel, device,
+                                      card, workdir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
             timed("sift", phase_sift, device, card, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
@@ -2795,6 +3199,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             hier_launches = timed("hier", phase_hier, device, card, workdir,
                                   os.path.join(workdir, "fresh.db"))
+            timed("viewer", phase_viewer, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             auto_launches = timed("auto", phase_auto, device, card, workdir)
@@ -2827,6 +3232,7 @@ def main() -> int:
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",
              launches=launches["match_top2"],
+             parallel_launches=parallel_launches,
              extractor_launches=extractor_launches,
              auto_launches=auto_launches["match_top2"], **match_stats),
         dict(name="schur_gram_aos", route="cuda",
@@ -2842,4 +3248,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase parallel
+        sys.path.insert(0, REPO)
+        parallel_rank(*sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -6,16 +6,27 @@ the reference's TPU kernels become CUDA C++ kernels in ``kernels/``,
 built on first use.  The package never imports the reference
 or its array framework.
 
-Ported so far: the ``bundle_adjuster`` slice, i.e. the mapper's global
-bundle adjustment on the explicit-Schur SoA solver (``optim/ba_soa.py``)
-with hand-written Schur Gram and PCG kernels; the matcher slice, i.e.
-the database, the exhaustive, sequential, spatial and transitive
-matchers and the matches importer (``features/``) with a hand-written
-top-2 match kernel; the front end (SIFT and the line lift,
-``feature_extractor``); and ``line_initializer``: the 4-view initializer
-(``init/``), RANSAC and robust line triangulation (``solvers/``), the
-correspondence graph and database cache (``models/``) and the
-incremental triangulator and the mapper's init path (``sfm/``).
+It does everything the reference package does, with the reference's
+module names:
+
+* bundle adjustment (``optim/``): the flat, dense-block and SoA
+  explicit-Schur solvers with hand-written Schur Gram and PCG kernels,
+  and the variable-intrinsics solver;
+* the front end and the matchers (``features/``): SIFT and the line
+  lift, the database, the exhaustive, sequential, spatial and
+  transitive matchers and the matches importer, with a hand-written
+  top-2 match kernel;
+* the 4-view line initializer (``init/``), RANSAC with PROSAC and the
+  subset prescreen, P6L registration and robust line triangulation
+  (``solvers/``), the correspondence graph and database cache
+  (``models/``);
+* the incremental mapper, its controller and the hierarchical mapper
+  (``sfm/``);
+* the sharded matcher and the point-sharded bundle adjustment on
+  ``torch.distributed``, one rank per process (``parallel/``);
+* the model viewer, PNG through matplotlib or a self-contained HTML file
+  (``viz/``);
+* the ``ppsfm`` CLI's 15 subcommands (``exe/``).
 """
 
 __version__ = "0.1.0"

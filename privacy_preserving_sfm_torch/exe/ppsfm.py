@@ -32,14 +32,17 @@ Ported subcommands, with the flags of the reference CLI
   mapper (``sfm/hierarchical.py``), blocks of ``--block_size`` images
   sharing ``--overlap``, reconstructed in ``--num_workers`` spawned
   processes on ``--device``, chain-merged and refined together;
-* ``image_filterer`` (``:441-450, 629-634``) and ``project_generator``
-  (``:503-511, 656-661``), host code with no ``--device``;
+* ``image_filterer`` (``:441-450, 629-634``), ``project_generator``
+  (``:503-511, 656-661``) and ``model_viewer`` (``:476-500, 641-654``: a
+  PNG view or turntable through matplotlib, or with ``--html`` a
+  self-contained interactive viewer that needs no matplotlib), host code
+  with no ``--device``;
 * ``automatic_reconstructor`` (``:514-539, 663-670``): the extractor, the
   matcher and the mapper in one process under a quality preset.
 
-14 of the reference's 15 subcommands; ``model_viewer`` is not ported.
-Device work runs on ``--device`` (default ``cuda``; asking for CUDA
-without a CUDA device is an error, never a silent CPU run).
+All 15 of the reference's subcommands.  Device work runs on ``--device``
+(default ``cuda``; asking for CUDA without a CUDA device is an error,
+never a silent CPU run).
 """
 
 from __future__ import annotations
@@ -557,6 +560,38 @@ def cmd_image_filterer(args):
     return filtered
 
 
+def cmd_model_viewer(args):
+    """Render a text model to PNG (one view, or ``--turntable`` frames
+    into a directory), or with ``--html`` write the interactive viewer
+    (reference ``ppsfm.py:476-500``).  Returns the paths written."""
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+
+    rec = Reconstruction.read_text(args.input_path)
+    if args.html:
+        from privacy_preserving_sfm_torch.viz.interactive import export_html
+
+        export_html(rec, args.html)
+        print(f"Wrote interactive viewer {args.html}")
+        return [args.html]
+    if not args.output_path:
+        raise SystemExit("model_viewer: need --output_path or --html")
+    from privacy_preserving_sfm_torch.viz import render
+
+    if args.turntable > 0:
+        paths = render.render_turntable(rec, args.output_path,
+                                        num_frames=args.turntable,
+                                        elev=args.elev,
+                                        color_by=args.color_by)
+        print(f"Wrote {len(paths)} frames to {args.output_path}")
+        return paths
+    render.render_model(rec, args.output_path, elev=args.elev,
+                        azim=args.azim, color_by=args.color_by)
+    print(f"Wrote {args.output_path}")
+    return [args.output_path]
+
+
 def cmd_project_generator(args):
     """Write a ``project.ini`` with the defaults, under a quality preset
     when given (reference ``ppsfm.py:503-511``)."""
@@ -715,6 +750,21 @@ def main(argv=None):
     p.add_argument("--max_reproj_error", type=float, default=4.0)
     p.add_argument("--min_tri_angle", type=float, default=1.5)
     p.set_defaults(func=cmd_image_filterer)
+
+    p = sub.add_parser("model_viewer")
+    p.add_argument("--input_path", required=True)
+    p.add_argument("--output_path", required=False, default="",
+                   help="PNG path (or directory with --turntable)")
+    p.add_argument("--html", default="",
+                   help="write a self-contained interactive HTML viewer "
+                        "(orbit/pan/zoom, color-by, frusta) instead of PNG")
+    p.add_argument("--turntable", type=int, default=0,
+                   help="render N azimuth frames instead of one view")
+    p.add_argument("--elev", type=float, default=-60.0)
+    p.add_argument("--azim", type=float, default=-90.0)
+    p.add_argument("--color_by", choices=["track", "error", "depth"],
+                   default="track")
+    p.set_defaults(func=cmd_model_viewer)
 
     p = sub.add_parser("project_generator")
     p.add_argument("--database_path", default="")

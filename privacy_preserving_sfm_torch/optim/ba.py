@@ -3,7 +3,9 @@
 Port of ``privacy_preserving_sfm_tpu/optim/ba.py``: the containers and
 helpers every solver shares, the LM loop of the flat and dense-block
 solvers, and the flat implicit-Schur solver ``bundle_adjust``
-(reference ``:229-437``), which the mapper runs on the CPU.
+(reference ``:229-437``), which the mapper runs on the CPU; its body,
+``implicit_schur_lm``, also runs each rank of the point-sharded solver
+(``parallel/distributed_ba.py``).
 
 Problem layout:
 
@@ -255,8 +257,12 @@ def block_jacobi_cg(matvec, SJ_inv: torch.Tensor, rhs: torch.Tensor,
     return x
 
 
+def _identity(x):
+    return x
+
+
 def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
-                        solve_step, intrinsics=None):
+                        solve_step, intrinsics=None, reduce_max=_identity):
     """The LM loop of the reference's ``ba.bundle_adjust``,
     ``ba_dense.bundle_adjust_dense`` (``ba.py:359-423``) and
     ``ba_intrinsics.bundle_adjust_intrinsics`` (``ba_intrinsics.py:
@@ -272,6 +278,10 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
     returns (dc, du (U, Pr), dp).  The normal equations are rebuilt only
     after an accepted step (Ceres keeps the Jacobian across rejected
     ones).  The loop reads the accept flag on the host once per
+    iteration.  ``reduce_max`` takes the largest gradient entry of this
+    process's variables (a 0-d tensor) to that of the whole problem: the
+    identity here, the max over the ranks of a point-sharded solve
+    (``parallel/distributed_ba.py``), so that every rank stops at the same
     iteration.  Returns (qvecs, tvecs, points3d[, intrinsics],
     BASummary).
     """
@@ -298,7 +308,7 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
                                   (gp * pmask).abs().max())
             if intrinsics is not None:
                 g_max = torch.maximum(g_max, (normal[-2] * imask).abs().max())
-            grad_done = bool(g_max <= options.gradient_tolerance)
+            grad_done = bool(reduce_max(g_max) <= options.gradient_tolerance)
         steps = solve_step(normal, lam)
         dc, dp = steps[0], steps[-1]
         x_new = _apply_step(x[0], x[1], x[2], -(dc * mask), -(dp * pmask))
@@ -393,6 +403,17 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
     """Implicit-Schur LM on the flat problem; returns (qvecs, tvecs,
     points3d, BASummary).  ``torch.profiler`` sees the spans
     ``ba.build_normal`` and ``ba.solve_step``."""
+    return implicit_schur_lm(problem, camera_model, options)
+
+
+def implicit_schur_lm(problem: BAProblem, camera_model: str,
+                      options: BAOptions, reduce_sum=_identity,
+                      reduce_max=_identity):
+    """``bundle_adjust`` on the points and observations of one rank of a
+    point-sharded solve: ``reduce_sum`` sums the camera blocks, the
+    camera-space CG terms and the cost over the ranks, ``reduce_max`` the
+    gradient's max (``levenberg_marquardt``); point blocks stay local.
+    With the identity for both, this is ``bundle_adjust``."""
     C = problem.qvecs.shape[0]
     P = problem.points3d.shape[0]
     oc, op = problem.obs_cam, problem.obs_point
@@ -403,7 +424,7 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
     cams, pts = bin_plan(C, oc), bin_plan(P, op)
 
     def cost_fn(q, t, X):
-        return _cost(problem, q, t, X, camera_model, loss, scale)
+        return reduce_sum(_cost(problem, q, t, X, camera_model, loss, scale))
 
     @record_function("ba.build_normal")
     def build_normal(q, t, X):
@@ -415,8 +436,9 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
         Hcp_o = torch.einsum("ori,orj,o->oij", Jc, Jp, w)  # (O, 6, 3)
         gc_o = torch.einsum("ori,or,o->oi", Jc, r, w)
         gp_o = torch.einsum("ori,or,o->oi", Jp, r, w)
-        return (_sym(_bins(cams, Hcc_o)), _sym(_bins(pts, Hpp_o)), Hcp_o,
-                _bins(cams, gc_o), _bins(pts, gp_o))
+        Hcc = _sym(reduce_sum(_bins(cams, Hcc_o)))
+        return (Hcc, _sym(_bins(pts, Hpp_o)), Hcp_o,
+                reduce_sum(_bins(cams, gc_o)), _bins(pts, gp_o))
 
     @record_function("ba.solve_step")
     def solve_step(normal, lam):
@@ -428,13 +450,14 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
             Etv = _bins(pts, torch.einsum("oji,oj->oi", Hcp_o, v[oc]))
             y = torch.einsum("pij,pj->pi", Hpp_inv, Etv)
             Ey = _bins(cams, torch.einsum("oij,oj->oi", Hcp_o, y[op]))
-            return torch.einsum("cij,cj->ci", dHcc, v) - Ey
+            return torch.einsum("cij,cj->ci", dHcc, v) - reduce_sum(Ey)
 
         # RHS g_c - E Hpp^-1 g_p and the Schur-Jacobi preconditioner.
         y0 = torch.einsum("pij,pj->pi", Hpp_inv, gp)
-        rhs = gc - _bins(cams, torch.einsum("oij,oj->oi", Hcp_o, y0[op]))
+        rhs = gc - reduce_sum(
+            _bins(cams, torch.einsum("oij,oj->oi", Hcp_o, y0[op])))
         SJ_o = torch.einsum("oij,ojk,olk->oil", Hcp_o, Hpp_inv[op], Hcp_o)
-        SJ_inv = _inv6(dHcc - _bins(cams, SJ_o) + 1e-12 * eye6)
+        SJ_inv = _inv6(dHcc - reduce_sum(_bins(cams, SJ_o)) + 1e-12 * eye6)
         dc = _finite_or_zero(block_jacobi_cg(S_matvec, SJ_inv, rhs,
                                              options.cg_iterations))
         # Back-substitution: dp = Hpp^-1 (gp - E^T dc).
@@ -443,4 +466,4 @@ def bundle_adjust(problem: BAProblem, camera_model: str,
         return dc, _finite_or_zero(dp)
 
     return levenberg_marquardt(problem, options, cost_fn, build_normal,
-                               solve_step)
+                               solve_step, reduce_max=reduce_max)

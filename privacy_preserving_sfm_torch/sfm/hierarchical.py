@@ -20,10 +20,11 @@ worker processes where asked, then chain-merge:
 
 Blocks run on ``device``: in this process (``num_workers`` 1) or in
 ``num_workers`` spawned processes (CUDA cannot fork), each given the
-device by name; on CUDA the kernel library is built here first, so the
-workers only load it.  A worker returns a snapshot of numpy arrays, never
-tensors, that names the device its mapper ran on; ``hierarchical_map``
-raises when a snapshot names another device than the one asked for.
+device by its full name (``cuda:1`` stays ``cuda:1``); on CUDA the kernel
+library is built here first, so the workers only load it.  A worker
+returns a snapshot of numpy arrays, never tensors, that names the device
+its mapper ran on, index included; ``hierarchical_map`` raises when a
+snapshot names another device than the one asked for.
 ``PPSFM_WORKER_THREADS`` caps each worker's torch threads.
 """
 
@@ -122,7 +123,7 @@ def _block_worker(args) -> Optional[dict]:
                               key=lambda r: r.num_registered()))
     if ctrl.device.type == "cuda":
         torch.cuda.synchronize(ctrl.device)
-    snap.update(device=ctrl.device.type,
+    snap.update(device=str(ctrl.device),
                 seconds=time.perf_counter() - t0,
                 profile=dict(ctrl.profiler.totals),
                 launches={k: v - before[k] for k, v in build.LAUNCHES.items()})
@@ -243,9 +244,9 @@ def hierarchical_map(database_path: str, options: HierarchicalOptions, *,
     blocks = partition_sequential(names, options.block_size, options.overlap)
     log(f"Hierarchical mapper: {len(names)} images -> {len(blocks)} blocks "
         f"(size {options.block_size}, overlap {options.overlap}, "
-        f"{options.num_workers} workers, {device.type})")
+        f"{options.num_workers} workers, {device})")
 
-    jobs = [(database_path, blk, ctrl_opts, device.type, dtype)
+    jobs = [(database_path, blk, ctrl_opts, str(device), dtype)
             for blk in blocks]
     if options.num_workers > 1:
         import multiprocessing as mp
@@ -266,9 +267,9 @@ def hierarchical_map(database_path: str, options: HierarchicalOptions, *,
                              ("device", "seconds", "profile", "launches")}
                             for i in ok])
     for i in ok:
-        if snaps[i]["device"] != device.type:
+        if snaps[i]["device"] != str(device):
             raise RuntimeError(f"block {i} ran on {snaps[i]['device']}, "
-                               f"not {device.type}")
+                               f"not {device}")
         log(f"  => block {i}: {len(snaps[i]['poses'])} images in "
             f"{snaps[i]['seconds']:.1f} s on {snaps[i]['device']}")
     log(f"  => {len(ok)}/{len(blocks)} blocks reconstructed")

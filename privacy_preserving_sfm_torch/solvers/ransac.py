@@ -1,8 +1,8 @@
 """Batched RANSAC pieces (torch): sampling, support scores, selection.
 
-Port of the parts of ``privacy_preserving_sfm_tpu/solvers/ransac.py`` that
-the initializer, the triangulator and the mapper call (PROSAC
-and the subset prescreen come with a caller).  Semantics follow
+Port of ``privacy_preserving_sfm_tpu/solvers/ransac.py``, PROSAC and the
+subset prescreen included (no caller of either package uses those two;
+``tests/test_torch_ransac_samplers.py`` holds them).  Semantics follow
 the reference framework (``src/optim/ransac.h:78-249``,
 ``loransac.h:54-238``, ``support_measurement.h:43-77``), executed as a
 batch: B hypotheses are generated and scored together.
@@ -14,7 +14,9 @@ module) is ``-sum(min(r, thresh))``.  Selection keeps the first maximum.
 
 Random draws come from a ``torch.Generator`` on the CPU and are returned
 on the CPU, so a run on the card and a run on the CPU see the same
-samples; the reference's random streams are not reproduced.
+samples; the reference's random streams are not reproduced.  Orderings
+keep the lower index first among equal values, as the reference's
+stable sort and top-k do (``_top_k_indices``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -126,3 +129,98 @@ def num_trials_needed(num_inliers: int, num_valid: int, sample_size: int,
     denom = math.log1p(-min(_integer_pow(ratio, sample_size), 1.0 - 1e-12))
     trials = multiplier * nom / min(denom, -1e-300)
     return min(trials, max_trials)
+
+
+def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of the last axis, largest first,
+    the lower index first among equal values (the reference's top-k); a
+    stable descending sort, where ``torch.topk`` promises no order among
+    ties."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def prosac_prefix_sizes(num_data: int, sample_size: int,
+                        num_hypotheses: int,
+                        num_progressive: int = 200_000) -> np.ndarray:
+    """PROSAC prefix sizes n_t for t = 1..B, (B,) int32 on the host: the
+    t-th hypothesis samples from the n_t best-ranked correspondences
+    (``src/optim/progressive_sampler.cc:49-82``, Chum & Matas eq. 3),
+    growing towards plain RANSAC."""
+    m = sample_size
+    T_n = float(num_progressive)
+    for i in range(m):
+        T_n *= (m - i) / (num_data - i)
+    T_n_p = 1.0
+    n = m
+    out = np.zeros(num_hypotheses, np.int32)
+    for t in range(1, num_hypotheses + 1):
+        if t == int(T_n_p) and n < num_data:
+            T_n_plus_1 = T_n * (n + 1.0) / (n + 1.0 - m)
+            T_n_p += np.ceil(T_n_plus_1 - T_n)
+            T_n = T_n_plus_1
+            n += 1
+        out[t - 1] = n
+    return out
+
+
+def gumbel_noise(generator: torch.Generator, num_hypotheses: int,
+                 num_data: int) -> torch.Tensor:
+    """(B, N) float64 standard Gumbel draws, -log(E) of unit exponential
+    draws, from ``generator`` on the CPU."""
+    e = torch.empty(num_hypotheses, num_data, dtype=torch.float64)
+    return -torch.log(e.exponential_(generator=generator))
+
+
+def progressive_samples(noise: torch.Tensor, valid: torch.Tensor,
+                        sample_size: int,
+                        quality_rank: torch.Tensor) -> torch.Tensor:
+    """PROSAC samples from given Gumbel ``noise`` (B, N): hypothesis t
+    takes the ``sample_size`` largest noise entries among the first n_t of
+    the quality order (``prosac_prefix_sizes``, clipped to the number of
+    valid entries).  Returns (B, k) int64 indices into the data, on
+    ``noise``'s device."""
+    num_hypotheses, num_data = noise.shape
+    device = noise.device
+    valid = valid.to(device)
+    rank = torch.where(valid, quality_rank.to(device, noise.dtype),
+                       torch.full((), float("inf"), dtype=noise.dtype,
+                                  device=device))
+    order = torch.argsort(rank, stable=True)  # (N,)
+    prefix = torch.minimum(
+        torch.as_tensor(prosac_prefix_sizes(num_data, sample_size,
+                                            num_hypotheses),
+                        dtype=torch.int64, device=device),
+        valid.sum())  # never sample padding
+    pos = torch.arange(num_data, device=device)
+    logits = torch.where(pos[None, :] < prefix[:, None], noise,
+                         torch.full((), -float("inf"), dtype=noise.dtype,
+                                    device=device))
+    return order[_top_k_indices(logits, sample_size)]
+
+
+def draw_samples_progressive(generator: torch.Generator, num_data: int,
+                             valid: torch.Tensor, sample_size: int,
+                             num_hypotheses: int,
+                             quality_rank: torch.Tensor) -> torch.Tensor:
+    """PROSAC sampling, batched (reference ``ransac.py:131-155``): (B, k)
+    distinct indices, hypothesis t drawing from the top-n_t entries of the
+    quality order (``quality_rank`` (N,), lower = better).  The Gumbel
+    noise comes from ``generator`` on the CPU and moves to ``valid``'s
+    device."""
+    if valid.shape != (num_data,):
+        raise ValueError(f"valid must be ({num_data},), got "
+                         f"{tuple(valid.shape)}")
+    noise = gumbel_noise(generator, num_hypotheses, num_data)
+    return progressive_samples(noise.to(valid.device), valid, sample_size,
+                               quality_rank)
+
+
+def subset_prescreen(res_subset: torch.Tensor, threshold,
+                     valid_subset: torch.Tensor, keep: int) -> torch.Tensor:
+    """Indices (keep,) of the ``keep`` hypotheses with the best support on
+    a residual subset (``res_subset`` (B, n_sub) squared residuals), best
+    first, the lower index first among equal scores: the batched stand-in
+    for the reference's SPRT (``sprt.h:45-80``, ``ransac.py:158-174``)."""
+    score, _, _ = inlier_score(res_subset, threshold, valid_subset)
+    return _top_k_indices(score, keep)
+

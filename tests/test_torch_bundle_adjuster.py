@@ -137,6 +137,10 @@ def test_port_imports_without_jax():
         "from privacy_preserving_sfm_torch.utils import config\n"
         "from privacy_preserving_sfm_torch.optim import ba_intrinsics\n"
         "from privacy_preserving_sfm_torch.sfm import hierarchical\n"
+        "from privacy_preserving_sfm_torch.parallel import (\n"
+        "    distributed_ba, multihost, sharded_matching)\n"
+        "from privacy_preserving_sfm_torch.viz import (\n"
+        "    frustum, interactive, render)\n"
         "import tempfile\n"
         "import torch\n"
         "torch.set_num_threads(2)\n"
@@ -159,6 +163,9 @@ def test_port_imports_without_jax():
         "                '--block_size', '6', '--overlap', '3',\n"
         "                '--device', 'cpu'])\n"
         "assert h['merged'] == 2 and h['model'].num_registered() == 8\n"
+        "v = ppsfm.main(['model_viewer', '--input_path', d + '/hier/0',\n"
+        "                '--html', d + '/v.html'])\n"
+        "assert v == [d + '/v.html']\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib',\n"

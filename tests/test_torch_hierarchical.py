@@ -7,8 +7,9 @@ block of it) builds the same model in either package; the restricted
 ``DatabaseCache.load`` keeps the database's image ids, on which the merge
 keys its tracks; ``hierarchical_map`` on ``tests/test_hierarchical.py``'s
 two-block database meets that test's bars on the CPU; one and two worker
-processes write byte-identical models; a snapshot from another device
-than the one asked for raises.
+processes write byte-identical models; every block job gets the device
+asked for with its index, and a snapshot from another device or index
+raises.
 """
 
 import os
@@ -233,3 +234,34 @@ def test_a_snapshot_from_another_device_raises(two_blocks, monkeypatch):
             path, thier.HierarchicalOptions(block_size=10, overlap=4,
                                             controller=FAST),
             device="cpu", verbose=False)
+
+
+def test_every_block_job_gets_the_device_index(two_blocks, monkeypatch):
+    """Asked for ``cuda:1``, every block job gets ``"cuda:1"``, not the
+    device type (which would run the blocks on the current card)."""
+    seen = []
+
+    def recorder(args):
+        seen.append(args[3])
+        return None
+
+    monkeypatch.setattr(thier, "_block_worker", recorder)
+    assert thier.hierarchical_map(
+        two_blocks[0], thier.HierarchicalOptions(block_size=10, overlap=4,
+                                                 controller=FAST),
+        device="cuda:1", verbose=False) is None
+    assert seen == ["cuda:1", "cuda:1"]
+
+
+def test_a_snapshot_from_another_device_index_raises(two_blocks,
+                                                     monkeypatch):
+    def on_card_0(args):
+        return {"poses": {}, "points": [], "device": "cuda:0",
+                "seconds": 0.0, "profile": {}, "launches": {}}
+
+    monkeypatch.setattr(thier, "_block_worker", on_card_0)
+    with pytest.raises(RuntimeError, match="ran on cuda:0, not cuda:1"):
+        thier.hierarchical_map(
+            two_blocks[0], thier.HierarchicalOptions(
+                block_size=10, overlap=4, controller=FAST),
+            device="cuda:1", verbose=False)
