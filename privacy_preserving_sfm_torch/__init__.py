@@ -26,7 +26,9 @@ module names:
   ``torch.distributed``, one rank per process (``parallel/``);
 * the model viewer, PNG through matplotlib or a self-contained HTML file
   (``viz/``);
-* the ``ppsfm`` CLI's 15 subcommands (``exe/``).
+* the ``ppsfm`` CLI's 15 subcommands (``exe/``);
+* the evaluation tools of the repository's ``tools/``: the seeded
+  dataset renderer and the pose-parity evaluator (``tools/``).
 """
 
 __version__ = "0.1.0"

@@ -835,8 +835,12 @@ class IncrementalMapper:
         route of ``choose_ba_route``, recorded in ``last_route``; write
         back the cameras with free dofs and the points with
         ``point_mask`` > 0.  With any ``refine_*`` option set the problem
-        goes to ``_run_ba_intrinsics`` instead.  Returns (solved,
-        observations)."""
+        goes to ``_run_ba_intrinsics`` instead.  Where ``PPSFM_BA_LOG``
+        names a file, one line per solve, of either route, is appended to
+        it (as the reference's ``_run_ba`` does for its routes): route, C,
+        P, K (0 on the flat and intrinsics routes), O, seconds from the
+        assembled problem to the written-back result, LM iterations,
+        observations.  Returns (solved, observations)."""
         t_start = time.perf_counter()
         asm = self.assemble_ba(config_images, const_pose, const_tvec_x,
                                variable_points)
@@ -866,7 +870,23 @@ class IncrementalMapper:
                         schur_mode="explicit" if route.explicit
                         else "implicit"))
         self.last_route = route
-        return self._write_back(asm, q, t, X, summary, t_start, t_assembled)
+        out = self._write_back(asm, q, t, X, summary, t_start, t_assembled)
+        self._log_ba(asm, summary, t_assembled,
+                     0 if route.solver == "flat" else dense.obs_cam.shape[1])
+        return out
+
+    def _log_ba(self, asm: BAAssembly, summary, t_assembled: float,
+                K: int):
+        """Append the solve's line to the file ``PPSFM_BA_LOG`` names."""
+        ba_log = os.environ.get("PPSFM_BA_LOG")
+        if ba_log:
+            with open(ba_log, "a") as f:
+                f.write(f"{self.last_route.solver} C={len(asm.cam_list)} "
+                        f"P={asm.problem.points3d.shape[0]} K={K} "
+                        f"O={asm.problem.obs_cam.shape[0]} "
+                        f"solve_s={time.perf_counter() - t_assembled:.3f} "
+                        f"iters={int(summary.num_iterations)} "
+                        f"nobs={len(asm.obs)}\n")
 
     def _write_back(self, asm: BAAssembly, q, t, X, summary, t_start: float,
                     t_assembled: float, finite: bool = True
@@ -934,6 +954,7 @@ class IncrementalMapper:
         ok, num_obs = self._write_back(asm, q, t, X, summary, t_start,
                                        t_assembled,
                                        bool(np.isfinite(intr_new).all()))
+        self._log_ba(asm, summary, t_assembled, 0)
         if not ok:
             return ok, num_obs
         for u, cid in enumerate(cam_ids):

@@ -92,6 +92,46 @@ def test_bundle_adjuster_routes_match_reference(model_dir, monkeypatch,
     assert tuple(mapper.last_route[:2]) == route
 
 
+@pytest.mark.parametrize("ba_path", ["soa", "flat"])
+def test_ba_log_records_each_solve(model_dir, monkeypatch, tmp_path,
+                                   ba_path):
+    """``PPSFM_BA_LOG``: one line per solve, route first (the reference's
+    ``_run_ba`` log, without its compile-cache fields)."""
+    log = tmp_path / "ba.log"
+    monkeypatch.setenv("PPSFM_BA_LOG", str(log))
+    monkeypatch.setenv("PPSFM_BA_PATH", ba_path)
+    mapper = tcli.main(["bundle_adjuster", "--input_path",
+                        str(model_dir / "in"), "--output_path",
+                        str(tmp_path / "out"), "--max_num_iterations", "3",
+                        "--device", "cpu", "--dtype", "float64"])
+    (line,) = log.read_text().splitlines()
+    fields = line.split()
+    assert fields[:4] == [ba_path, "C=8", "P=200",
+                          "K=4" if ba_path == "soa" else "K=0"]
+    assert fields[4] == "O=800" and fields[5].startswith("solve_s=")
+    assert fields[6:] == [f"iters={mapper.last_summary.num_iterations}",
+                          "nobs=800"]
+
+
+def test_ba_log_records_intrinsics_solves(model_dir, monkeypatch, tmp_path):
+    from privacy_preserving_sfm_torch.optim import ba as tba
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper, MapperOptions,
+    )
+
+    log = tmp_path / "ba.log"
+    monkeypatch.setenv("PPSFM_BA_LOG", str(log))
+    mapper = IncrementalMapper(torch.device("cpu"), torch.float64)
+    mapper.begin_reconstruction(Reconstruction.read_text(
+        str(model_dir / "in")))
+    # With no database cache there is no triangulator to tell of a bake.
+    monkeypatch.setattr(mapper, "_bake_intrinsics", lambda *a: None)
+    assert mapper.adjust_global_bundle(MapperOptions(), tba.BAOptions(
+        max_iterations=3, refine_focal_length=True))
+    (line,) = log.read_text().splitlines()
+    assert line.split()[:4] == ["intrinsics", "C=8", "P=200", "K=0"]
+
+
 def test_cuda_device_without_gpu_is_an_error(model_dir, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -141,6 +181,8 @@ def test_port_imports_without_jax():
         "    distributed_ba, multihost, sharded_matching)\n"
         "from privacy_preserving_sfm_torch.viz import (\n"
         "    frustum, interactive, render)\n"
+        "from privacy_preserving_sfm_torch.tools import (\n"
+        "    evaluate, synth_dataset)\n"
         "import tempfile\n"
         "import torch\n"
         "torch.set_num_threads(2)\n"
@@ -166,9 +208,15 @@ def test_port_imports_without_jax():
         "v = ppsfm.main(['model_viewer', '--input_path', d + '/hier/0',\n"
         "                '--html', d + '/v.html'])\n"
         "assert v == [d + '/v.html']\n"
+        "synth_dataset.make_dataset(d + '/sd', 1, 96, 64, f=60.0,\n"
+        "                           scene='box', camera='OPENCV',\n"
+        "                           degrade=1.0)\n"
+        "r = evaluate.report(d + '/hier/0', ref_model=d + '/sparse/0')\n"
+        "assert r['num_registered'] == 8, r\n"
         "assert build._lib is None\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'tools',\n"
+        "                               'evaluate', 'synth_dataset',\n"
         "                               'privacy_preserving_sfm_tpu')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -198,7 +246,8 @@ def test_port_sources_name_no_jax():
             continue
         for n in names:
             assert n.split(".")[0] not in (
-                "jax", "jaxlib", "privacy_preserving_sfm_tpu"), n
+                "jax", "jaxlib", "cv2", "tools", "evaluate", "synth_dataset",
+                "privacy_preserving_sfm_tpu"), n
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):
