@@ -14,7 +14,12 @@ solver (``PPSFM_BA_PATH=dense``, phase ``dense_explicit``), each solved
 twice with bit-equal output models and LM iteration counts required;
 ``bundle_adjuster`` with no override on a 1,280-camera
 global BA (100,000 points, 600,000 observations), which the mapper sends
-to the dense-block implicit solver (phase ``dense_implicit``); and
+to the dense-block implicit solver (phase ``dense_implicit``);
+``bundle_adjuster`` on a seeded model at ``BA300``, the shape of the
+largest global BA the mapper ran at the reference's 300-view scale (phase
+``ba300``: the SoA route with the PCG on its grid path, two solves
+bit-equal, every Gram and PCG call of the solve held against its plain
+version in float32 and float64 as in phase ``mapper``); and
 ``exhaustive_matcher`` on a seeded synthetic database of 64 images x 8,192
 descriptors (the reference's default feature cap; 2,016 pairs), checked
 against the generator's true correspondences, against the plain version
@@ -38,10 +43,10 @@ the first run's largest local and global BA solved again with the
 kernels and with the plain versions, every Gram and PCG call of the
 solve checked against its plain version on the same inputs); and
 ``hierarchical_mapper --block_size 8 --overlap 3`` on that database
-(phase ``hier``, cell Hier-1600): with one worker and with two spawned
-workers on the card (byte-identical models, every block's snapshot from
-the card, all 16 images within ``HIER_BAR``, ``schur_gram`` and
-``schur_pcg`` launched); ``automatic_reconstructor`` in a fresh process on
+(phase ``hier``, cell Hier-1600): with two spawned workers on the card
+(every block's snapshot from the card, all 16 images within
+``HIER_BAR``, ``schur_gram`` and ``schur_pcg`` launched);
+``automatic_reconstructor`` in a fresh process on
 12 freshly rendered 640 x 480 box images (phase ``auto``: all registered
 in one model within ``AUTO_BAR``, ``match_top2`` launched); the
 reference's box50d (phase ``box50d``, cell Box50d): 50 box views at
@@ -74,8 +79,9 @@ float64 run), with the wall, the LM iterations and the all-reduces'
 count and share; then the Matcher cell's 2,016 pairs split over the two
 ranks, ``match_top2.cu`` launched on each, the gathered result equal to
 the unsharded match in every field.  With ``PPSFM_SMOKE_PROFILE=1``,
-phase ``mapper``'s second run and phase ``hier``'s one-worker run go
-under torch.profiler, split by span, and phase ``uncal`` runs its
+phase ``mapper``'s second run goes under torch.profiler, split by span,
+phase ``hier`` runs with one worker too, under it (the one- and
+two-worker models byte-identical), and phase ``uncal`` runs its
 controller a second time under it (byte-identical models required).  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
@@ -223,6 +229,37 @@ BOX50D = (50, (480, 640), 0, 1.0)
 BOX50D_BAR = (max(2 * 0.002120000578489829, 0.005),
               max(2 * 0.06904010978004925, 0.25))
 BOX50D_TARGETS = dict(registered=50, ate_rmse=0.0020, mean_rot_deg=0.060)
+# The reference's 300-view scale (cells Box300 and Hier300): BOX300 =
+# tools/synth_dataset.py's "OUT 300 box" (SIMPLE_PINHOLE, f 400, no
+# degradation, seed 0), matched sequentially with overlap 10 (pairs of
+# images up to 10 apart in name order) as the reference's runs were.
+# Box300 is automatic_reconstructor --matcher sequential --overlap 10;
+# its bar (ATE RMSE, mean rotation error in degrees) is twice the
+# reference's accuracy on another platform (reports/eval_box300_tpu_r5_0
+# .json: 300 of 300, 0.002413, 0.04484 deg), floored at 0.005 and 0.25.
+# Hier300 is hierarchical_mapper with HIER300 = (block size, overlap,
+# workers) on a database of the same rendering made by feature_extractor
+# and sequential_matcher; its bar is twice the reference's CPU run
+# (reports/eval_hier300_cpu_r4.json: 300 of 300, 0.002629, 0.05462 deg),
+# floored the same way.  Neither fits this script's time limit: each runs
+# from a script of its own (README).
+BOX300 = (300, (480, 640), 0, 0.0)
+SEQUENTIAL_OVERLAP = 10
+BOX300_TARGETS = dict(registered=300, ate_rmse=0.0024131254331015,
+                      mean_rot_deg=0.044840981009035726)
+BOX300_BAR = (max(2 * BOX300_TARGETS["ate_rmse"], 0.005),
+              max(2 * BOX300_TARGETS["mean_rot_deg"], 0.25))
+HIER300 = (80, 8, 4)
+HIER300_TARGETS = dict(registered=300, ate_rmse=0.0026287585555720572,
+                       mean_rot_deg=0.054622698922911016)
+HIER300_BAR = (max(2 * HIER300_TARGETS["ate_rmse"], 0.005),
+               max(2 * HIER300_TARGETS["mean_rot_deg"], 0.25))
+# Phase ba300: bundle_adjuster on a seeded model at BA300 = (cameras,
+# points, longest track, observations), the largest global BA of the
+# port's mapper at that scale, where the PCG takes its grid path (C >
+# 155): Box300's last global BA as its PPSFM_BA_LOG measured it on an H100
+# (tools/torch_scale300.py box300).
+BA300 = (300, 13409, 128, 755822)
 # hierarchical_mapper on the extractor's database (cell Hier-1600) with
 # HIER = (block size, overlap): 3 blocks of 8, 8 and 6 images.  Its bar is
 # MAPPER_BAR's kind: twice the reference CLI's errors on a CPU-written
@@ -232,8 +269,8 @@ BOX50D_TARGETS = dict(registered=50, ate_rmse=0.0020, mean_rot_deg=0.060)
 HIER = (8, 3)
 HIER_BAR = (0.25, 1.0)
 # PPSFM_SMOKE_PROFILE=1 runs phase mapper's and phase uncal's second run
-# and phase hier's one-worker run under torch.profiler, split by span
-# (``span_split``): about 7 minutes more (the three runs launch ~0.9, ~2
+# and phase hier's one-worker run (otherwise not run) under
+# torch.profiler, split by span (``span_split``): about 7 minutes more (the three runs launch ~0.9, ~2
 # and ~0.9 M kernels; stopping the profiler and reading its events take
 # most of it).
 PROFILE = os.environ.get("PPSFM_SMOKE_PROFILE") == "1"
@@ -783,18 +820,24 @@ def phase_pcg(device, card, sync, reps=5):
     return main_stats
 
 
-def phase_main_path(device, card, workdir):
+def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
+                    path="cluster", check_ba=False):
+    """``bundle_adjuster --device`` in float32 on a model made by
+    ``synthetic_model(seed=0, **cfg)``: ``schur_gram``, ``schur_pcg`` and
+    the PCG's ``path`` launched, the output model finite with the line
+    error at least halved, and the same solve again under torch.profiler
+    bit-equal in as many LM iterations.  The final cost is held against a
+    float64 solve through the plain Gram and PCG or, with ``check_ba``,
+    the solve against the plain route by ``check_mapper_ba`` (every Gram
+    and PCG call, float32 and float64).  The first solve in the process
+    (phase ``main``) is preceded by a small warm-up solve.  Returns the
+    launches and, with ``check_ba``, ``check_mapper_ba``'s errors."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
     from privacy_preserving_sfm_torch.kernels import build
     from privacy_preserving_sfm_torch.models.reconstruction import (
         Reconstruction,
-    )
-    from privacy_preserving_sfm_torch.optim import ba as ba_mod
-    from privacy_preserving_sfm_torch.optim import ba_dense, ba_soa
-    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
-        IncrementalMapper,
     )
     from privacy_preserving_sfm_torch.utils.synthetic import (
         line_error_sum, synthetic_model,
@@ -803,34 +846,40 @@ def phase_main_path(device, card, workdir):
     t0 = time.perf_counter()
     in_dir = os.path.join(workdir, "in")
     out_dir = os.path.join(workdir, "out")
-    synthetic_model(seed=0, **MAIN).write_text(in_dir)
-    warm_dir = os.path.join(workdir, "warm")
-    synthetic_model(10, 500, 6, seed=1).write_text(warm_dir)
+    synthetic_model(seed=0, **cfg).write_text(in_dir)
     start = Reconstruction.read_text(in_dir)
     err_in = line_error_sum(start)
-    phase("main", f"synthetic model: {start.num_registered()} images, "
+    K = max(len(p.track) for p in start.points3d.values())
+    phase(name, f"synthetic model: {start.num_registered()} images, "
           f"{len(start.points3d)} points, {start.num_observations()} "
-          f"observations, written in {time.perf_counter() - t0:.1f} s")
+          f"observations, longest track {K}, written in "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    # The first solve in a process pays one-time costs (lazy loading of
-    # PyTorch's CUDA modules, torch.func set-up); time them apart.
-    t0 = time.perf_counter()
-    ppsfm.main(["bundle_adjuster", "--input_path", warm_dir, "--output_path",
-                os.path.join(workdir, "warm_out"), "--max_num_iterations",
-                "3", "--device", device.type, "--dtype", "float32"])
-    torch.cuda.synchronize()
-    phase("main", f"warm-up solve (10 images, first in the process): "
-          f"{time.perf_counter() - t0:.3f} s")
+    if name == "main":
+        # The first solve in a process pays one-time costs (lazy loading
+        # of PyTorch's CUDA modules, torch.func set-up); time them apart.
+        warm_dir = os.path.join(workdir, "warm")
+        synthetic_model(10, 500, 6, seed=1).write_text(warm_dir)
+        t0 = time.perf_counter()
+        ppsfm.main(["bundle_adjuster", "--input_path", warm_dir,
+                    "--output_path", os.path.join(workdir, "warm_out"),
+                    "--max_num_iterations", "3", "--device", device.type,
+                    "--dtype", "float32"])
+        torch.cuda.synchronize()
+        phase(name, f"warm-up solve (10 images, first in the process): "
+              f"{time.perf_counter() - t0:.3f} s")
 
-    for name in build.LAUNCHES:
-        build.LAUNCHES[name] = 0
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    solves = {}
     t0 = time.perf_counter()
-    mapper = ppsfm.main(["bundle_adjuster", "--input_path", in_dir,
-                         "--output_path", out_dir, "--max_num_iterations",
-                         str(LM_ITERS), "--device", device.type,
-                         "--dtype", "float32"])
+    with mapper_ba_capture(solves) if check_ba else contextlib.nullcontext():
+        mapper = ppsfm.main(["bundle_adjuster", "--input_path", in_dir,
+                             "--output_path", out_dir,
+                             "--max_num_iterations", str(LM_ITERS),
+                             "--device", device.type, "--dtype", "float32"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -839,16 +888,47 @@ def phase_main_path(device, card, workdir):
     solve_s = mapper.phase_times["ba_solve"]
     nobs = start.num_observations()
     rate = nobs * summary.num_iterations / solve_s
-    phase("main", f"bundle_adjuster --device {device.type} (float32): "
-          f"wall {wall:.3f} s, ba_solve {solve_s:.3f} s, LM iterations "
-          f"{summary.num_iterations}, {rate:.1f} obs*iter/s (ba_solve), "
-          f"peak device memory {peak / 2**20:.1f} MiB, launches "
-          f"{launches} | {card}")
-    for name in ("schur_gram", "schur_pcg", "schur_pcg_cluster"):
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the main path")
+    phase(name, f"bundle_adjuster --device {device.type} (float32): route "
+          f"{tuple(mapper.last_route)}, wall {wall:.3f} s, ba_solve "
+          f"{solve_s:.3f} s, LM iterations {summary.num_iterations}, "
+          f"{rate:.1f} obs*iter/s (ba_solve), peak device memory "
+          f"{peak / 2**20:.1f} MiB, launches {launches} | {card}")
+    check(mapper.last_route.solver == "soa",
+          f"the solve took route {tuple(mapper.last_route)}, not soa")
+    for k in ("schur_gram", "schur_pcg", f"schur_pcg_{path}"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the solve")
 
-    check_output_model(out_dir, MAIN, err_in, "main")
+    check_output_model(out_dir, cfg, err_in, name)
+    if check_ba:
+        errors = check_mapper_ba(device, card, solves, name,
+                                 kinds=("global",))
+        solves.clear()
+    else:
+        errors = None
+        float64_plain(device, in_dir, summary)
+    again = gram_share(name, card, lambda: ppsfm.main([
+        "bundle_adjuster", "--input_path", in_dir, "--output_path",
+        os.path.join(workdir, "out_prof"), "--max_num_iterations",
+        str(LM_ITERS), "--device", device.type, "--dtype", "float32"]))
+    check_same_solve(name, out_dir, os.path.join(workdir, "out_prof"),
+                     summary, again.last_summary)
+    return launches, errors
+
+
+def float64_plain(device, in_dir, summary):
+    """The model at ``in_dir`` solved in float64 on the SoA route through
+    the plain Gram and PCG: the float32 ``summary``'s final cost within
+    1e-3 of it."""
+    import torch
+
+    from privacy_preserving_sfm_torch.models.reconstruction import (
+        Reconstruction,
+    )
+    from privacy_preserving_sfm_torch.optim import ba as ba_mod
+    from privacy_preserving_sfm_torch.optim import ba_dense, ba_soa
+    from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
+        IncrementalMapper,
+    )
 
     # The same problem in float64 through the plain Gram and PCG.
     rec = Reconstruction.read_text(in_dir)
@@ -868,13 +948,37 @@ def phase_main_path(device, card, workdir):
           f"iterations, {time.perf_counter() - t0:.3f} s): rel diff "
           f"{rel:.3e} (tol 1e-3); initial cost {summary.initial_cost!r}")
     check(rel <= 1e-3, "final cost disagrees with the float64 plain run")
-    again = gram_share("main", card, lambda: ppsfm.main([
-        "bundle_adjuster", "--input_path", in_dir, "--output_path",
-        os.path.join(workdir, "out_prof"), "--max_num_iterations",
-        str(LM_ITERS), "--device", device.type, "--dtype", "float32"]))
-    check_same_solve("main", out_dir, os.path.join(workdir, "out_prof"),
-                     summary, again.last_summary)
-    return launches
+
+
+def ba300_model(shape, seed=300):
+    """``synthetic_model``'s arguments for a global BA of ``shape`` = (C,
+    P, K, observations): a fiftieth of the points (at least one) seen by
+    K cameras, the rest by a seeded number of cameras, uniform from 4
+    (three lines or fewer leave a point's 3 x 3 block near singular) to
+    what makes up the observations on average."""
+    import numpy as np
+
+    C, P, K, nobs = shape
+    n_long = max(1, P // 50)
+    mean = (nobs - n_long * K) / (P - n_long)
+    rng = np.random.default_rng(seed)
+    rest = rng.integers(4, max(5, int(round(2 * mean)) - 3), P - n_long)
+    lengths = np.concatenate([np.full(n_long, K), np.minimum(rest, K)])
+    return dict(num_images=C, num_points=P, obs_per_point=K,
+                track_lengths=rng.permutation(lengths).tolist(),
+                meas_noise=MAIN["meas_noise"])
+
+
+def phase_ba300(device, card, workdir):
+    """``bundle_adjuster`` (phase ``main``'s code) at BA300, the shape of
+    the largest global BA the port's mapper ran at the reference's
+    300-view scale: the SoA route with the PCG on "auto", which takes the
+    grid path there; every Gram and PCG call of the solve held against
+    the plain version (``check_mapper_ba``).  Returns the launches and
+    those errors."""
+    return phase_main_path(device, card, workdir, name="ba300",
+                           cfg=ba300_model(BA300), path="grid",
+                           check_ba=True)
 
 
 def check_same_solve(name, out_a, out_b, summary_a, summary_b):
@@ -2072,41 +2176,50 @@ def pose_differences(qa, ta, qb, tb, free):
             float(np.linalg.norm(s * a - b, axis=1)[free].max() / scale), s)
 
 
-def check_mapper_ba(device, card, record, name="mapper"):
+def check_mapper_ba(device, card, record, name="mapper",
+                    kinds=("local", "global")):
     """The mapper's largest local BA (frozen extra cameras and frozen
-    points) and largest global BA, held against the plain route on the
-    card.  Each is solved again with the kernels, which must give the
-    mapper's own result bit for bit; every Gram and PCG call of that solve
-    is checked against its plain version on the same inputs: the Gram at
-    phase ``gram``'s tolerances (1e-4 float32, 1e-10 float64, of the
-    largest entry); the PCG against a float64 plain solve, at phase
-    ``pcg``'s 1e-10 in float64 and, in float32, 1e-4 or, where the
-    solve's systems are more sensitive, four times the largest error of
-    the plain float32 solves of the same calls.  Then the whole problem in
-    float32 through the plain versions (plain=True) and in float64 through
-    them: final costs within 1e-3 of the float64 one, every free camera's
-    rotation within MAPPER_BA_TOL[0] degrees and centre within
-    MAPPER_BA_TOL[1] of the float64 one after the least-squares scale about
-    the first camera (``pose_differences``; the distance before it and the
-    scale are printed), the kernels' scale no farther from 1 than
-    MAPPER_BA_TOL[1] or four times the plain float32 solve's.  That scale is the one direction a float32 LM
-    leaves unresolved: on box50d's global BA (C = 50, 145,154
-    observations) every float32 solve, the kernels', the plain one and the
-    reference package's on the same problem, stops 4e-4 short of the
-    float64 scale within float32's resolution of the cost (0.9996, 8e-4
-    of centre before it, 7e-5 after).  Prints under phase ``name``.  Returns, for the Gram
-    and the PCG, the largest relative error of the float32 calls and
-    ``mapper_shape_times``."""
+    points) and largest global BA (of ``kinds``, both unless told), held
+    against the plain route on the card.  Each is solved again with the
+    kernels, which must give the mapper's own result bit for bit; every
+    Gram and PCG call of that solve is checked against its plain version on
+    the same inputs: the Gram at phase ``gram``'s tolerances (1e-4 float32,
+    1e-10 float64, of the largest entry); the PCG against a float64 plain
+    solve, at phase ``pcg``'s 1e-10 in float64 and, in float32, 1e-4 or,
+    where the solve's systems are more sensitive, four times the largest
+    error of the plain float32 solves of the same calls.  Then the whole
+    problem in float32 through the plain versions (plain=True) and in
+    float64 through them: final costs within 1e-3 of the float64 one, every
+    free camera's rotation within MAPPER_BA_TOL[0] degrees and centre
+    within MAPPER_BA_TOL[1] of the float64 one after the least-squares
+    scale about the first camera (``pose_differences``; the distance before
+    it and the scale are printed), the kernels' scale no farther from 1
+    than MAPPER_BA_TOL[1] or four times the plain float32 solve's.  That
+    scale is the one direction a float32 LM leaves unresolved: on box50d's
+    global BA (C = 50, 145,154 observations) every float32 solve, the
+    kernels', the plain one and the reference package's on the same
+    problem, stops 4e-4 short of the float64 scale within float32's
+    resolution of the cost (0.9996, 8e-4 of centre before it, 7e-5
+    after).  The PCG launches of the kernel re-solve are counted by path
+    (cluster, grid).  Prints under phase ``name``.  Returns, for the Gram and
+    the PCG, the largest relative error of the float32 calls,
+    ``mapper_shape_times`` of each kind (keys ``mapper_*`` for the local
+    BA, ``global_*`` for the global one) and, for the PCG, the re-solves'
+    launches by path."""
     import torch
 
+    from privacy_preserving_sfm_torch.kernels import build
     from privacy_preserving_sfm_torch.optim import ba_soa, schur_pcg
 
     t_start = time.perf_counter()
-    check("local" in record, "the mapper ran no SoA local BA with frozen "
-          "points")
-    check("global" in record, "the mapper ran no SoA global BA")
+    check("local" in record or "local" not in kinds,
+          "the mapper ran no SoA local BA with frozen points")
+    check("global" in record or "global" not in kinds,
+          "the mapper ran no SoA global BA")
     worst = {"schur_gram": 0.0, "schur_pcg": 0.0}
-    for kind in ("local", "global"):
+    times = {"schur_gram": {}, "schur_pcg": {}}
+    paths = collections.Counter()
+    for kind in kinds:
         nobs, problem, model, options, (q0, t0, X0, s0) = record[kind]
         problem = to_device(problem, device)
         q0, t0, X0 = to_device((q0, t0, X0), device)
@@ -2127,11 +2240,15 @@ def check_mapper_ba(device, card, record, name="mapper"):
             return pcg(S, dH, minv, rhs, iters, path)
 
         schur_pcg.gram_soa, schur_pcg.pcg_schur = gram_keep, pcg_keep
+        before = dict(build.LAUNCHES)
         try:
             q, t, X, s = ba_soa.bundle_adjust_soa(problem, model, options)
         finally:
             schur_pcg.gram_soa, schur_pcg.pcg_schur = gram, pcg
         torch.cuda.synchronize()
+        took = {p: build.LAUNCHES[f"schur_pcg_{p}"] - before[f"schur_pcg_{p}"]
+                for p in ("cluster", "grid")}
+        paths.update(took)
         same = (torch.equal(q, q0) and torch.equal(t, t0)
                 and torch.equal(X, X0) and s == s0)
         check(len(grams) > 0 and len(pcgs) > 0,
@@ -2154,7 +2271,9 @@ def check_mapper_ba(device, card, record, name="mapper"):
                            / scales[1])
 
             gram_errs.append((err(S32, r32), err(S64, r64)))
-        pcg_errs = []  # (kernel float32, kernel float64, plain float32)
+        # (kernel float32, kernel float64, plain float32, plain float64 on
+        # the host: the float64 spread of two summation orders)
+        pcg_errs = []
         for S, dH, minv, rhs, iters in pcgs:
             system64 = [a.double() for a in (S, dH, minv, rhs)]
             x_ref = schur_pcg.pcg_schur_plain(*system64, iters)
@@ -2165,16 +2284,18 @@ def check_mapper_ba(device, card, record, name="mapper"):
 
             pcg_errs.append((
                 rel(pcg(S, dH, minv, rhs, iters)), rel(pcg(*system64, iters)),
-                rel(schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters))))
+                rel(schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters)),
+                rel(schur_pcg.pcg_schur_plain(
+                    *(a.cpu() for a in system64), iters).to(x_ref.device))))
         finite = all(math.isfinite(e) for e in sum(gram_errs + pcg_errs, ()))
         g32, g64 = (max(e) for e in zip(*gram_errs))
-        p32, p64, plain32 = (max(e) for e in zip(*pcg_errs))
+        p32, p64, plain32, host64 = (max(e) for e in zip(*pcg_errs))
         ratio = max(e[0] / max(e[2], 1e-300) for e in pcg_errs)
         worst["schur_gram"] = max(worst["schur_gram"], g32)
         worst["schur_pcg"] = max(worst["schur_pcg"], p32)
-        if kind == "local":
-            times = mapper_shape_times(card, gram, pcg, C, grams[0],
-                                       pcgs[0], name)
+        for k, v in mapper_shape_times(card, gram, pcg, C, grams[0],
+                                       pcgs[0], name, kind).items():
+            times[k].update(v)
 
         problem64 = problem._replace(**{
             f: getattr(problem, f).double() for f in problem._fields
@@ -2192,12 +2313,14 @@ def check_mapper_ba(device, card, record, name="mapper"):
         phase(name, f"{kind} BA held against the plain route (C={C}, "
               f"{int(free.sum())} free, P={P} ({frozen_points} frozen), "
               f"K={K}, {nobs} observations): kernel re-solve bit-equal to "
-              f"the mapper's={same}; {len(grams)} Gram calls, max rel err "
+              f"the mapper's={same}, PCG launches by path {took}; "
+              f"{len(grams)} Gram calls, max rel err "
               f"float32 {g32:.3e} (tol 1e-4) float64 {g64:.3e} (tol "
               f"1e-10); {len(pcgs)} PCG calls against float64 plain, max "
               f"rel err float32 {p32:.3e} (tol "
               f"{max(1e-4, 4 * plain32):.3e}) float64 {p64:.3e} (tol "
-              f"1e-10), plain float32 {plain32:.3e}, largest ratio of a "
+              f"1e-10), plain float32 {plain32:.3e}, plain float64 on the "
+              f"host {host64:.3e}, largest ratio of a "
               f"call's float32 kernel and plain errors {ratio:.3f}; final "
               f"cost kernels float32 "
               f"{s.final_cost!r} ({s.num_iterations} it), plain float32 "
@@ -2231,15 +2354,18 @@ def check_mapper_ba(device, card, record, name="mapper"):
                   "float64 plain solve")
     phase(name, f"BAs held against the plain route in "
           f"{time.perf_counter() - t_start:.1f} s")
-    return {name: dict(mapper_max_rel_err=worst[name], **times[name])
-            for name in worst}
+    out = {k: dict(mapper_max_rel_err=worst[k], **times[k]) for k in worst}
+    out["schur_pcg"].update(recheck_cluster_launches=paths["cluster"],
+                            recheck_grid_launches=paths["grid"])
+    return out
 
 
 def mapper_shape_times(card, gram, pcg, C, gram_args, pcg_args, name,
-                       reps=5):
+                       kind="local", reps=5):
     """Times (CUDA events, ms) of the kernels and their plain versions on
-    the first Gram and PCG inputs of the mapper's largest local BA, with
-    their bounds."""
+    the first Gram and PCG inputs of the mapper's largest ``kind`` BA,
+    with their bounds and the PCG's path at that C."""
+    from privacy_preserving_sfm_torch.kernels import build
     from privacy_preserving_sfm_torch.optim import schur_pcg
 
     lh, gl, cam, precision = gram_args
@@ -2250,20 +2376,24 @@ def mapper_shape_times(card, gram, pcg, C, gram_args, pcg_args, name,
         lambda: schur_pcg.gram_soa_plain(lh, gl, cam, C, precision), reps)
     g_bound = gram_bound(K, P, C, plan, lh.element_size())
     S, dH, minv, rhs, iters = pcg_args
+    grid = build.LAUNCHES["schur_pcg_grid"]
     p_ms = cuda_ms(lambda: pcg(S, dH, minv, rhs, iters), reps)
+    path = "grid" if build.LAUNCHES["schur_pcg_grid"] > grid else "cluster"
     p_plain = cuda_ms(
         lambda: schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters), reps)
     p_bound, p_by = pcg_bound(C, S.element_size(), iters)
-    phase(name, f"at the local BA's shape (K={K} P={P} C={C}): Gram "
+    phase(name, f"at the {kind} BA's shape (K={K} P={P} C={C}): Gram "
           f"kernel {g_ms:.4f} ms (plan prebuilt; bound "
           f"{g_bound['bound_ms']:.3e} ms, {g_bound['bound_by']}), plain "
-          f"{g_plain:.4f} ms; PCG (n={6 * C}, {iters} iterations) kernel "
-          f"{p_ms:.4f} ms (bound {p_bound:.3e} ms, {p_by}), plain "
-          f"{p_plain:.4f} ms | {card}")
-    return {"schur_gram": dict(mapper_ms=g_ms, mapper_plain_ms=g_plain,
-                               mapper_bound_ms=g_bound["bound_ms"]),
-            "schur_pcg": dict(mapper_ms=p_ms, mapper_plain_ms=p_plain,
-                              mapper_bound_ms=p_bound)}
+          f"{g_plain:.4f} ms; PCG (n={6 * C}, {iters} iterations, {path} "
+          f"path) kernel {p_ms:.4f} ms (bound {p_bound:.3e} ms, {p_by}), "
+          f"plain {p_plain:.4f} ms | {card}")
+    key = "mapper" if kind == "local" else kind
+    return {"schur_gram": {f"{key}_ms": g_ms, f"{key}_plain_ms": g_plain,
+                           f"{key}_bound_ms": g_bound["bound_ms"]},
+            "schur_pcg": {f"{key}_ms": p_ms, f"{key}_plain_ms": p_plain,
+                          f"{key}_bound_ms": p_bound,
+                          f"{key}_path": path}}
 
 
 def phase_mapper(device, card, workdir, db):
@@ -2365,10 +2495,11 @@ def environ(changes):
         put(saved)
 
 
-def reconstruct(device, images, ws, fresh, env=None):
-    """``automatic_reconstructor --device`` on ``images`` into workspace
-    ``ws``, in a fresh process (``fresh``) or in this one, with ``env``
-    applied as ``environ`` does; in this process every kernel count and
+def reconstruct(device, images, ws, fresh, env=None, extra=()):
+    """``automatic_reconstructor --device`` (and the flags ``extra``) on
+    ``images`` into workspace ``ws``, in a fresh process (``fresh``) or in
+    this one, with ``env`` applied as ``environ`` does; in this process
+    every kernel count and
     the card's peak memory are reset first.  Checks that it wrote one
     model.  Returns (wall s, the CLI's standard output, its launches, its
     images registered/s and peak device memory in MiB as printed, or
@@ -2381,7 +2512,7 @@ def reconstruct(device, images, ws, fresh, env=None):
     from privacy_preserving_sfm_torch.kernels import build
 
     argv = ["automatic_reconstructor", "--workspace_path", ws,
-            "--image_path", images, "--device", device.type]
+            "--image_path", images, "--device", device.type, *extra]
     with environ(env or {}):
         if fresh:
             t0 = time.perf_counter()
@@ -2451,19 +2582,57 @@ def phase_auto(device, card, workdir):
     return launches
 
 
+def ba_log_summary(path):
+    """The mapper's ``PPSFM_BA_LOG`` at ``path``: the solves' routes, and
+    (C, P, K, observations) of the solve with the most observations and of
+    the one with the most cameras."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                route, *fields = line.split()
+                kv = dict(x.split("=") for x in fields)
+                rows.append((route, *(int(kv[k]) for k in
+                                      ("C", "P", "K", "nobs"))))
+    check(rows, f"no BA was logged in {path}")
+    largest = max(rows, key=lambda r: (r[4], r[1]))[1:]
+    widest = max(rows, key=lambda r: (r[1], r[4]))[1:]
+    return [r[0] for r in rows], largest, widest
+
+
+def scene_log(name, text, ba_log):
+    """A line with the matcher's pairs and the mapper's profile, as the
+    CLI printed them in ``text``, and one with the BA log's summary.
+    Returns ``ba_log_summary``."""
+    pairs = re.findall(r"=> (\d+)/(\d+) pairs above threshold", text)
+    profile = re.findall(r"^([a-z_/]+) +([\d.]+) +(\d+)$", text, re.M)
+    phase(name, f"matcher pairs above threshold/scheduled {pairs}" + (
+        "; mapper phase profile (s, calls): " + ", ".join(
+            f"{k} {v} {c}" for k, v, c in profile) if profile else ""))
+    routes, largest, widest = ba_log_summary(ba_log)
+    phase(name, f"{len(routes)} BA solves by route "
+          f"{dict(collections.Counter(routes))}; the solve with the most "
+          f"observations (C, P, K, observations) {largest}, with the most "
+          f"cameras {widest}")
+    return routes, largest, widest
+
+
 def phase_box50d(device, card, workdir, *, name="box50d", scene=BOX50D,
-                 camera="OPENCV", bar=BOX50D_BAR, targets=BOX50D_TARGETS):
-    """``automatic_reconstructor`` in this process on ``scene`` = (views,
-    (H, W), seed, degrade) box views rendered here from the seed by the
-    port's ``tools/synth_dataset`` through ``camera``: one model, every
-    image registered, ATE RMSE and mean rotation error (the port's
-    ``tools/evaluate``) within ``bar``, ``schur_gram``, ``schur_pcg`` and
-    ``match_top2`` launched, every BA of the run on route ``soa`` (the
-    mapper's ``PPSFM_BA_LOG``), and the run's largest local and global BA
-    held against the plain route (``check_mapper_ba``).  ``targets`` are
-    the reference's accuracy on another platform, printed beside the
-    card's.  Returns the run's launches and the largest relative errors
-    of the float32 Gram and PCG calls in those BAs."""
+                 camera="OPENCV", bar=BOX50D_BAR, targets=BOX50D_TARGETS,
+                 matcher="exhaustive", overlap=10,
+                 require=("schur_gram", "schur_pcg", "match_top2")):
+    """``automatic_reconstructor --matcher matcher --overlap overlap`` in
+    this process on ``scene`` = (views, (H, W), seed, degrade) box views
+    rendered here from the seed by the port's ``tools/synth_dataset``
+    through ``camera``: one model, every image registered, ATE RMSE and
+    mean rotation error (the port's ``tools/evaluate``) within ``bar``,
+    every kernel count in ``require`` above 0, every BA of the run on
+    route ``soa`` (the mapper's ``PPSFM_BA_LOG``), and the run's largest
+    local and global BA held against the plain route
+    (``check_mapper_ba``).  ``targets`` are the reference's accuracy on
+    another platform, printed beside the card's.  Returns the run's
+    launches and the largest relative errors of the float32 Gram and PCG
+    calls in those BAs."""
     import torch
 
     from privacy_preserving_sfm_torch.tools import evaluate
@@ -2484,38 +2653,35 @@ def phase_box50d(device, card, workdir, *, name="box50d", scene=BOX50D,
         wall, text, launches, rate, peak = reconstruct(
             device, images, ws, fresh=False, env=dict(
                 PPSFM_BA_LOG=ba_log, PPSFM_BA_PATH=None,
-                PPSFM_SCHUR_MODE=None))
+                PPSFM_SCHUR_MODE=None),
+            extra=("--matcher", matcher, "--overlap", str(overlap)))
     stages = re.findall(r"Elapsed time: ([\d.]+) \[minutes\]", text)
-    profile = re.findall(r"^([a-z_]+) +([\d.]+) +(\d+)$", text, re.M)
-    with open(ba_log) as f:
-        routes = [line.split()[0] for line in f if line.strip()]
     rep = evaluate.report(os.path.join(ws, "sparse", "0"),
                           gt=os.path.join(images, "gt_poses.txt"))
     ate, rot = rep["ate_rmse"], rep["mean_rot_deg"]
     phase(name, f"rendered {n} box views {w}x{h} ({camera}, degrade "
           f"{degrade}, seed {seed}) in {render_s:.1f} s on the host; "
-          f"automatic_reconstructor --device {device.type} in this "
-          f"process: wall {wall:.2f} s (extraction, matching, mapper "
-          f"{', '.join(stages)} min), mapper {rate} images registered/s, "
-          f"peak device memory {peak} MiB | {card}")
-    phase(name, "mapper phase profile (s, calls): " + ", ".join(
-        f"{k} {v} {c}" for k, v, c in profile))
+          f"automatic_reconstructor --matcher {matcher} --overlap {overlap} "
+          f"--device {device.type} in this process: wall {wall:.2f} s "
+          f"(extraction, matching, mapper {', '.join(stages)} min), mapper "
+          f"{rate} images registered/s, peak device memory {peak} MiB; host "
+          f"cores {os.cpu_count()} | {card}")
+    routes, _, _ = scene_log(name, text, ba_log)
     phase(name, f"{rep['num_registered']} of {n} images registered, "
           f"{rep['num_points3d']} points, mean reprojection error "
           f"{rep['mean_reproj_error_px']:.4f} px; ATE RMSE {ate:.6f} (bar "
           f"{bar[0]:.6f}), mean rotation error {rot:.5f} deg (bar "
           f"{bar[1]:.5f}), median {rep['median_rot_deg']:.5f} deg; "
-          f"accuracy targets of the reference's round-5 TPU run (another "
-          f"platform): {targets['registered']}/{n}, ATE "
-          f"{targets['ate_rmse']}, {targets['mean_rot_deg']} deg")
-    phase(name, f"BA solves by route {dict(collections.Counter(routes))}; "
-          f"launches {launches}")
+          f"accuracy targets of the reference's run on another platform: "
+          f"{targets['registered']}/{n}, ATE {targets['ate_rmse']}, "
+          f"{targets['mean_rot_deg']} deg")
+    phase(name, f"launches {launches}")
     check(rep["num_registered"] == n, f"{rep['num_registered']} of {n} "
           "images registered")
     check(ate <= bar[0] and rot <= bar[1], f"{name}'s poses miss the bar")
-    check(routes and set(routes) == {"soa"},
+    check(set(routes) == {"soa"},
           f"BAs off the SoA route: {collections.Counter(routes)}")
-    for k in ("schur_gram", "schur_pcg", "match_top2"):
+    for k in require:
         check(launches[k] > 0, f"{k} was not launched")
     errors = check_mapper_ba(device, card, solves, name)
     solves.clear()
@@ -2523,14 +2689,150 @@ def phase_box50d(device, card, workdir, *, name="box50d", scene=BOX50D,
     return launches, {k: v["mapper_max_rel_err"] for k, v in errors.items()}
 
 
+def phase_hier300(device, card, workdir, *, name="hier300", scene=BOX300,
+                  hier=HIER300, bar=HIER300_BAR, targets=HIER300_TARGETS,
+                  overlap=SEQUENTIAL_OVERLAP):
+    """``hierarchical_mapper --block_size B --overlap V --num_workers W``
+    (``hier``) on ``scene``'s box views (pinhole, rendered here by the
+    port's ``tools/synth_dataset``), after ``feature_extractor`` and
+    ``sequential_matcher --overlap overlap`` on the card: the blocks in
+    spawned workers sharing the card (each with ``os.cpu_count() / W``
+    torch threads), the merge and the joint refinement in this process.
+    One model, every image registered, ATE RMSE and mean rotation error
+    within ``bar``, every block's snapshot from the card, every BA of the
+    workers and of the refinement on route ``soa`` (``PPSFM_BA_LOG``),
+    ``match_top2`` launched by the matcher and ``schur_gram``,
+    ``schur_pcg`` and the PCG's grid path by the refinement, and the
+    refinement's largest global BA held against the plain route
+    (``check_mapper_ba``).  Returns the refinement's launches and the
+    largest relative errors of its float32 Gram and PCG calls."""
+    import io
+
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.tools import evaluate
+    from privacy_preserving_sfm_torch.tools.synth_dataset import (
+        make_dataset,
+    )
+
+    n, (h, w), seed, degrade = scene
+    block, block_overlap, workers = hier
+    images = os.path.join(workdir, f"{name}_images")
+    t0 = time.perf_counter()
+    make_dataset(images, n, w, h, f=0.625 * w, seed=seed, scene="box",
+                 degrade=degrade)
+    render_s = time.perf_counter() - t0
+    db = os.path.join(workdir, f"{name}.db")
+    out = os.path.join(workdir, name)
+    ba_log = os.path.join(workdir, f"{name}_ba.log")
+    stage_s, launches = {}, {}
+
+    def stage(what, argv):
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                got = ppsfm.main(argv)
+        except BaseException:
+            print(buf.getvalue()[-3000:], file=sys.stderr)
+            raise
+        torch.cuda.synchronize()
+        stage_s[what] = time.perf_counter() - t0
+        launches[what] = dict(build.LAUNCHES)
+        return got, buf.getvalue()
+
+    dev = ["--device", device.type]
+    stage("feature_extractor", ["feature_extractor", "--database_path", db,
+                                "--image_path", images, *dev])
+    _, text = stage("sequential_matcher", [
+        "sequential_matcher", "--database_path", db, "--overlap",
+        str(overlap), *dev])
+    torch.cuda.reset_peak_memory_stats()
+    solves = {}
+    with mapper_ba_capture(solves), environ(dict(
+            PPSFM_BA_LOG=ba_log, PPSFM_BA_PATH=None, PPSFM_SCHUR_MODE=None,
+            PPSFM_WORKER_THREADS=str(max(1, (os.cpu_count() or 1)
+                                         // workers)))):
+        stats, hier_text = stage("hierarchical_mapper", [
+            "hierarchical_mapper", "--database_path", db, "--output_path",
+            out, "--block_size", str(block), "--overlap",
+            str(block_overlap), "--num_workers", str(workers), *dev])
+    peak = torch.cuda.max_memory_allocated()
+    rep = evaluate.report(os.path.join(out, "0"),
+                          gt=os.path.join(images, "gt_poses.txt"))
+    ate, rot = rep["ate_rmse"], rep["mean_rot_deg"]
+    devices = [snap["device"] for snap in stats["snapshots"]]
+    blocks = "; ".join(
+        f"{snap['seconds']:.1f} s (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(
+                snap["profile"].items(), key=lambda kv: -kv[1])
+            if "/" not in k) + f"), launches {snap['launches']}"
+        for snap in stats["snapshots"])
+    phase(name, f"rendered {n} box views {w}x{h} (seed {seed}) in "
+          f"{render_s:.1f} s on the host; --device {device.type}: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stage_s.items())
+          + f"; {rep['num_registered'] / stats['wall']:.3f} images "
+          f"registered/s (the mapper's wall); this process's peak device "
+          f"memory during the mapper "
+          f"{peak / 2**20:.1f} MiB; host cores {os.cpu_count()} | {card}")
+    phase(name, f"hierarchical_mapper --block_size {block} --overlap "
+          f"{block_overlap} --num_workers {workers}: blocks "
+          f"{stats['reconstructed']} of {stats['blocks']} reconstructed, "
+          f"{stats['merged']} merged, on {devices}; blocks' wall, profile "
+          f"(s) and launches: {blocks}")
+    refine = stats["refine_profile"]
+    phase(name, f"merged {stats['merged_points']} points, refined "
+          f"{stats['refined_points']}; joint refinement "
+          f"{stats['refine_seconds']:.2f} s, profile (s) " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(refine.items(),
+                                                key=lambda kv: -kv[1]))
+          + f"; launches by stage {launches}")
+    routes, _, _ = scene_log(name, text + hier_text, ba_log)
+    phase(name, f"{rep['num_registered']} of {n} images registered, "
+          f"{rep['num_points3d']} points, mean reprojection error "
+          f"{rep['mean_reproj_error_px']:.4f} px; ATE RMSE {ate:.6f} (bar "
+          f"{bar[0]:.6f}), mean rotation error {rot:.5f} deg (bar "
+          f"{bar[1]:.5f}), median {rep['median_rot_deg']:.5f} deg; "
+          f"accuracy of the reference's run on another platform: "
+          f"{targets['registered']}/{n}, ATE {targets['ate_rmse']:.6f}, "
+          f"{targets['mean_rot_deg']:.5f} deg")
+    # The refinement's BA is held first: it does not depend on the counts.
+    errors = check_mapper_ba(device, card, solves, name, kinds=("global",))
+    solves.clear()
+    check(stats["reconstructed"] == stats["merged"] == stats["blocks"],
+          f"{stats['reconstructed']} of {stats['blocks']} blocks "
+          f"reconstructed, {stats['merged']} merged")
+    check(devices == [device.type] * stats["reconstructed"],
+          f"a block ran on another device: {devices}")
+    check(rep["num_registered"] == n, f"{rep['num_registered']} of {n} "
+          "images registered")
+    check(ate <= bar[0] and rot <= bar[1], f"{name}'s poses miss the bar")
+    check(set(routes) == {"soa"},
+          f"BAs off the SoA route: {collections.Counter(routes)}")
+    check(launches["sequential_matcher"]["match_top2"] > 0,
+          "match_top2 was not launched")
+    mapped = launches["hierarchical_mapper"]
+    for k in ("schur_gram", "schur_pcg", "schur_pcg_grid"):
+        check(mapped[k] > 0, f"the joint refinement launched no {k}")
+    torch.cuda.empty_cache()
+    return mapped, {k: v["mapper_max_rel_err"] for k, v in errors.items()}
+
+
 def phase_hier(device, card, workdir, db):
     """``hierarchical_mapper --block_size 8 --overlap 3`` on phase
-    ``extractor``'s database (cell Hier-1600), once with one worker (this
-    process) and once with two spawned workers on the same card: one
-    model with every image within HIER_BAR, the two models
-    byte-identical, every block's snapshot from the card, ``schur_gram``
-    and ``schur_pcg`` launched in the one-worker run.  Returns that run's
-    launches."""
+    ``extractor``'s database (cell Hier-1600) with two spawned workers on
+    the card and, with PROFILE, first with one worker (this process,
+    under torch.profiler; cut from the default run for time): one model
+    with every image within HIER_BAR, every block's snapshot from the
+    card, ``schur_gram`` and ``schur_pcg`` launched by the blocks and the
+    joint refinement, and with PROFILE the two models byte-identical.
+    Returns the launches of the last run (this process's and the blocks'
+    snapshots')."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
@@ -2539,7 +2841,7 @@ def phase_hier(device, card, workdir, db):
 
     gt = read_gt_poses(os.path.join(workdir, "images", "gt_poses.txt"))
     runs = {}
-    for workers in (1, 2):
+    for workers in (1, 2) if PROFILE else (2,):
         out = os.path.join(workdir, f"hier_{workers}")
         for name in build.LAUNCHES:
             build.LAUNCHES[name] = 0
@@ -2561,7 +2863,10 @@ def phase_hier(device, card, workdir, db):
         else:
             go()
         stats, wall = got["stats"], got["wall"]
-        launches = dict(build.LAUNCHES)
+        launches = collections.Counter(build.LAUNCHES)
+        for snap in stats["snapshots"]:
+            launches.update(snap["launches"])
+        launches = dict(launches)
         peak = torch.cuda.max_memory_allocated()
         check(stats["model"] is not None, "no model")
         check(sorted(os.listdir(out)) == ["0"], "not one model")
@@ -2585,7 +2890,8 @@ def phase_hier(device, card, workdir, db):
               f"refinement {stats['refine_seconds']:.3f} s; rotation error {rot:.4f} deg, translation direction "
               f"error {dirn:.4f} deg (bar {HIER_BAR[0]} and {HIER_BAR[1]} "
               f"deg); this process's peak device memory "
-              f"{peak / 2**20:.1f} MiB, launches {launches} | {card}")
+              f"{peak / 2**20:.1f} MiB, launches (this process and the "
+              f"blocks) {launches} | {card}")
         check(devices == [device.type] * stats["blocks"],
               f"a block ran on another device: {devices}")
         check(len(names) == len(gt), f"{len(names)} of {len(gt)} images "
@@ -2593,11 +2899,12 @@ def phase_hier(device, card, workdir, db):
         check(rot <= HIER_BAR[0] and dirn <= HIER_BAR[1],
               "the hierarchical mapper's poses miss the bar")
         runs[workers] = (out, launches)
-    same = _model_bytes(os.path.join(runs[1][0], "0")) == _model_bytes(
-        os.path.join(runs[2][0], "0"))
-    phase("hier", f"one and two workers byte-identical={same}")
-    check(same, "one and two workers wrote different models")
-    launches = runs[1][1]
+    if PROFILE:
+        same = _model_bytes(os.path.join(runs[1][0], "0")) == _model_bytes(
+            os.path.join(runs[2][0], "0"))
+        phase("hier", f"one and two workers byte-identical={same}")
+        check(same, "one and two workers wrote different models")
+    launches = runs[2][1]
     check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
           "the hierarchical mapper launched no schur_gram or no schur_pcg")
     return launches
@@ -3349,10 +3656,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         gram_aos_stats = timed("gram_aos", phase_gram_aos, device, card)
         with tempfile.TemporaryDirectory() as workdir:
-            launches = timed("main", phase_main_path, device, card, workdir)
+            launches, _ = timed("main", phase_main_path, device, card,
+                                workdir)
             launches["schur_gram_aos"] = timed(
                 "dense_explicit", phase_dense_explicit, device, card,
                 workdir)["schur_gram_aos"]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            ba300_launches, ba300_errors = timed("ba300", phase_ba300,
+                                                 device, card, workdir)
         torch.cuda.empty_cache()
         match_stats = timed("match", phase_match, device, card)
         with tempfile.TemporaryDirectory() as workdir:
@@ -3410,6 +3722,11 @@ def main() -> int:
              hier_launches=hier_launches["schur_gram"],
              box50d_launches=box50d_launches["schur_gram"],
              box50d_max_rel_err=box50d_errors["schur_gram"],
+             ba300_launches=ba300_launches["schur_gram"],
+             ba300_max_rel_err=ba300_errors["schur_gram"][
+                 "mapper_max_rel_err"],
+             ba300_ms=ba300_errors["schur_gram"]["global_ms"],
+             ba300_bound_ms=ba300_errors["schur_gram"]["global_bound_ms"],
              **mapper_errors["schur_gram"], **gram_stats),
         dict(name="schur_pcg", route="cuda", source=src + "schur_pcg.cu",
              replaces=f"{ref}:93", launches=launches["schur_pcg"],
@@ -3417,6 +3734,12 @@ def main() -> int:
              hier_launches=hier_launches["schur_pcg"],
              box50d_launches=box50d_launches["schur_pcg"],
              box50d_max_rel_err=box50d_errors["schur_pcg"],
+             ba300_launches=ba300_launches["schur_pcg"],
+             ba300_grid_launches=ba300_launches["schur_pcg_grid"],
+             ba300_max_rel_err=ba300_errors["schur_pcg"][
+                 "mapper_max_rel_err"],
+             ba300_ms=ba300_errors["schur_pcg"]["global_ms"],
+             ba300_bound_ms=ba300_errors["schur_pcg"]["global_bound_ms"],
              **mapper_errors["schur_pcg"], **pcg_stats),
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",

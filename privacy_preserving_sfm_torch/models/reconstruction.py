@@ -624,3 +624,16 @@ class Reconstruction:
                                                 error=err)
                     rec._next_point_id = max(rec._next_point_id, pid + 1)
         return rec
+
+    def write_ply(self, path: str):
+        """Point cloud export as ASCII PLY (``reconstruction.cc:555-592``):
+        each point's position and color."""
+        with open(path, "w") as f:
+            f.write("ply\nformat ascii 1.0\n")
+            f.write(f"element vertex {len(self.points3d)}\n")
+            f.write("property float x\nproperty float y\nproperty float z\n")
+            f.write("property uchar red\nproperty uchar green\n"
+                    "property uchar blue\nend_header\n")
+            for p in self.points3d.values():
+                r, g, b = p.color
+                f.write(f"{p.xyz[0]} {p.xyz[1]} {p.xyz[2]} {r} {g} {b}\n")

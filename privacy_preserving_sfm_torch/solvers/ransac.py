@@ -81,11 +81,18 @@ def inlier_score(residuals: torch.Tensor, threshold, valid: torch.Tensor):
 
 
 def msac_score(residuals: torch.Tensor, threshold, valid: torch.Tensor):
-    """RansacLib LO-MSAC truncated score (negated: higher is better)."""
-    r = torch.where(valid, torch.minimum(
-        residuals, torch.as_tensor(threshold, dtype=residuals.dtype,
-                                   device=residuals.device)), 0.0)
-    inlier = (residuals < threshold) & valid
+    """RansacLib LO-MSAC truncated score (negated: higher is better).  A
+    residual not below the threshold counts as the threshold, NaN
+    included: a hypothesis whose residuals are not finite scores as all
+    outliers and cannot win ``select_best`` (in RansacLib no NaN score
+    wins a strict comparison).  The reference's ``minimum`` carries a NaN
+    into the score, where its argmax takes it; the two agree wherever the
+    residuals are finite."""
+    th = torch.as_tensor(threshold, dtype=residuals.dtype,
+                         device=residuals.device)
+    below = residuals < th
+    r = torch.where(valid, torch.where(below, residuals, th), 0.0)
+    inlier = below & valid
     return -torch.sum(r, dim=-1), torch.sum(inlier, dim=-1), inlier
 
 

@@ -266,6 +266,55 @@ def test_ransac_helpers_match_reference():
                                   np.asarray(ref_best.inlier_mask))
 
 
+def test_msac_score_lets_no_nan_hypothesis_win():
+    """A hypothesis with non-finite residuals (float32 overflow in a
+    minimal solve, as on the card in a 300-view block's init) scores as
+    all outliers: the finite best is kept, where the reference's
+    ``minimum`` makes the NaN score and its argmax picks it.  Finite
+    hypotheses keep the reference's scores."""
+    rng = np.random.default_rng(8)
+    res = rng.uniform(0, 2, (6, 9))
+    res[0] = np.nan
+    res[4, 2] = np.inf
+    valid = torch.ones(9, dtype=torch.bool)
+    score, num, inl = tr.msac_score(t(res), 1.0, valid)
+    assert torch.isfinite(score).all()
+    assert float(score[0]) == -9.0 and int(num[0]) == 0
+    ref = jr.msac_score(jnp.asarray(res), 1.0, jnp.ones(9, bool))
+    np.testing.assert_allclose(score[1:].numpy(), np.asarray(ref[0])[1:],
+                               rtol=1e-12)
+    np.testing.assert_array_equal(num.numpy(), np.asarray(ref[1]))
+    best = tr.select_best(t(res), score, num, inl)
+    assert int(best.best_index) == int(np.argmax(np.asarray(ref[0])[1:])) + 1
+    assert int(jr.select_best(jnp.asarray(res), *ref).best_index) == 0
+
+
+def test_offset_stage_keeps_its_inliers_past_a_nan_hypothesis(
+        reference_run, monkeypatch):
+    """The offset stage of the outlier scene, with one minimal hypothesis
+    made NaN: the set keeps the inliers it finds without it (before the
+    NaN-safe score it found none, as blocks of Hier300 did on the card)."""
+    run = reference_run
+    ref = run["res"]
+    _, _, rl, ones, grav, me = port_inputs(run)
+    Rg = ti.gravity_rotations(grav)
+    lifted = ti.lift_camera_2d(t(ref.cams2d)[None])
+    idx = run["draws"].offset
+    _, num, _ = ti.estimate_planar_offsets(lifted, Rg, rl, ones, me, idx)
+    solve = ti.planar_offset_solve
+
+    def one_nan(poses, Rg, lines_r, sample_mask):
+        cams = solve(poses, Rg, lines_r, sample_mask)
+        if cams.shape[1] == idx.shape[1]:  # the minimal hypotheses
+            cams[0, 5] = float("nan")
+        return cams
+
+    monkeypatch.setattr(ti, "planar_offset_solve", one_nan)
+    _, num_nan, _ = ti.estimate_planar_offsets(lifted, Rg, rl, ones, me,
+                                               idx)
+    assert int(num_nan[0]) == int(num[0]) == int(ref.num_inliers) > 0
+
+
 @pytest.mark.parametrize("case", ["exact", "outliers", "gravity_noise"])
 def test_port_draws_meet_reference_bars(case):
     """``tests/test_init.py``'s three scenes and bars, the port's draws
