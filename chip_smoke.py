@@ -43,10 +43,10 @@ the first run's largest local and global BA solved again with the
 kernels and with the plain versions, every Gram and PCG call of the
 solve checked against its plain version on the same inputs); and
 ``hierarchical_mapper --block_size 8 --overlap 3`` on that database
-(phase ``hier``, cell Hier-1600): with two spawned workers on the card
-(every block's snapshot from the card, all 16 images within
-``HIER_BAR``, ``schur_gram`` and ``schur_pcg`` launched);
-``automatic_reconstructor`` in a fresh process on
+(phase ``hier``, cell Hier-1600): with one worker and with two spawned
+workers on the card (byte-identical models, every block's snapshot from
+the card, all 16 images within ``HIER_BAR``, ``schur_gram`` and
+``schur_pcg`` launched); ``automatic_reconstructor`` in a fresh process on
 12 freshly rendered 640 x 480 box images (phase ``auto``: all registered
 in one model within ``AUTO_BAR``, ``match_top2`` launched); the
 reference's box50d (phase ``box50d``, cell Box50d): 50 box views at
@@ -79,9 +79,8 @@ float64 run), with the wall, the LM iterations and the all-reduces'
 count and share; then the Matcher cell's 2,016 pairs split over the two
 ranks, ``match_top2.cu`` launched on each, the gathered result equal to
 the unsharded match in every field.  With ``PPSFM_SMOKE_PROFILE=1``,
-phase ``mapper``'s second run goes under torch.profiler, split by span,
-phase ``hier`` runs with one worker too, under it (the one- and
-two-worker models byte-identical), and phase ``uncal`` runs its
+phase ``mapper``'s second run and phase ``hier``'s one-worker run go
+under torch.profiler, split by span, and phase ``uncal`` runs its
 controller a second time under it (byte-identical models required).  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
@@ -269,8 +268,8 @@ BA300 = (300, 13409, 128, 755822)
 HIER = (8, 3)
 HIER_BAR = (0.25, 1.0)
 # PPSFM_SMOKE_PROFILE=1 runs phase mapper's and phase uncal's second run
-# and phase hier's one-worker run (otherwise not run) under
-# torch.profiler, split by span (``span_split``): about 7 minutes more (the three runs launch ~0.9, ~2
+# and phase hier's one-worker run under torch.profiler, split by span
+# (``span_split``): about 7 minutes more (the three runs launch ~0.9, ~2
 # and ~0.9 M kernels; stopping the profiler and reading its events take
 # most of it).
 PROFILE = os.environ.get("PPSFM_SMOKE_PROFILE") == "1"
@@ -316,10 +315,10 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def timed(name, fn, *args):
-    """``fn(*args)``, then a line with the phase's seconds."""
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a line with the phase's seconds."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     phase(name, f"phase done in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -821,7 +820,7 @@ def phase_pcg(device, card, sync, reps=5):
 
 
 def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
-                    path="cluster", check_ba=False):
+                    path="cluster", check_ba=False, warm_up=False):
     """``bundle_adjuster --device`` in float32 on a model made by
     ``synthetic_model(seed=0, **cfg)``: ``schur_gram``, ``schur_pcg`` and
     the PCG's ``path`` launched, the output model finite with the line
@@ -829,16 +828,13 @@ def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
     bit-equal in as many LM iterations.  The final cost is held against a
     float64 solve through the plain Gram and PCG or, with ``check_ba``,
     the solve against the plain route by ``check_mapper_ba`` (every Gram
-    and PCG call, float32 and float64).  The first solve in the process
-    (phase ``main``) is preceded by a small warm-up solve.  Returns the
-    launches and, with ``check_ba``, ``check_mapper_ba``'s errors."""
+    and PCG call, float32 and float64).  With ``warm_up`` (the first solve
+    in the process) a small solve comes first.  Returns the launches and,
+    with ``check_ba``, ``check_mapper_ba``'s errors."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
     from privacy_preserving_sfm_torch.kernels import build
-    from privacy_preserving_sfm_torch.models.reconstruction import (
-        Reconstruction,
-    )
     from privacy_preserving_sfm_torch.utils.synthetic import (
         line_error_sum, synthetic_model,
     )
@@ -846,16 +842,16 @@ def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
     t0 = time.perf_counter()
     in_dir = os.path.join(workdir, "in")
     out_dir = os.path.join(workdir, "out")
-    synthetic_model(seed=0, **cfg).write_text(in_dir)
-    start = Reconstruction.read_text(in_dir)
+    start = synthetic_model(seed=0, **cfg)
+    start.write_text(in_dir)
     err_in = line_error_sum(start)
     K = max(len(p.track) for p in start.points3d.values())
     phase(name, f"synthetic model: {start.num_registered()} images, "
           f"{len(start.points3d)} points, {start.num_observations()} "
-          f"observations, longest track {K}, written in "
+          f"observations, longest track {K}, made and written in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    if name == "main":
+    if warm_up:
         # The first solve in a process pays one-time costs (lazy loading
         # of PyTorch's CUDA modules, torch.func set-up); time them apart.
         warm_dir = os.path.join(workdir, "warm")
@@ -2271,9 +2267,7 @@ def check_mapper_ba(device, card, record, name="mapper",
                            / scales[1])
 
             gram_errs.append((err(S32, r32), err(S64, r64)))
-        # (kernel float32, kernel float64, plain float32, plain float64 on
-        # the host: the float64 spread of two summation orders)
-        pcg_errs = []
+        pcg_errs = []  # (kernel float32, kernel float64, plain float32)
         for S, dH, minv, rhs, iters in pcgs:
             system64 = [a.double() for a in (S, dH, minv, rhs)]
             x_ref = schur_pcg.pcg_schur_plain(*system64, iters)
@@ -2284,12 +2278,24 @@ def check_mapper_ba(device, card, record, name="mapper",
 
             pcg_errs.append((
                 rel(pcg(S, dH, minv, rhs, iters)), rel(pcg(*system64, iters)),
-                rel(schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters)),
-                rel(schur_pcg.pcg_schur_plain(
-                    *(a.cpu() for a in system64), iters).to(x_ref.device))))
+                rel(schur_pcg.pcg_schur_plain(S, dH, minv, rhs, iters))))
         finite = all(math.isfinite(e) for e in sum(gram_errs + pcg_errs, ()))
         g32, g64 = (max(e) for e in zip(*gram_errs))
-        p32, p64, plain32, host64 = (max(e) for e in zip(*pcg_errs))
+        p32, p64, plain32 = (max(e) for e in zip(*pcg_errs))
+        if p64 > 1e-10:
+            # Diagnostic for the failure below: the plain float64 solve on
+            # the host against the card's, the spread of two summation
+            # orders on these systems.
+            host64 = 0.0
+            for *system, iters in pcgs:
+                x = schur_pcg.pcg_schur_plain(
+                    *(a.double() for a in system), iters)
+                x_host = schur_pcg.pcg_schur_plain(
+                    *(a.double().cpu() for a in system), iters)
+                host64 = max(host64, float((x_host.to(x.device) - x).norm())
+                             / max(float(x.norm()), 1e-300))
+            phase(name, f"{kind} BA: the plain float64 PCG on the host is "
+                  f"{host64:.3e} from the card's at most")
         ratio = max(e[0] / max(e[2], 1e-300) for e in pcg_errs)
         worst["schur_gram"] = max(worst["schur_gram"], g32)
         worst["schur_pcg"] = max(worst["schur_pcg"], p32)
@@ -2319,8 +2325,7 @@ def check_mapper_ba(device, card, record, name="mapper",
               f"1e-10); {len(pcgs)} PCG calls against float64 plain, max "
               f"rel err float32 {p32:.3e} (tol "
               f"{max(1e-4, 4 * plain32):.3e}) float64 {p64:.3e} (tol "
-              f"1e-10), plain float32 {plain32:.3e}, plain float64 on the "
-              f"host {host64:.3e}, largest ratio of a "
+              f"1e-10), plain float32 {plain32:.3e}, largest ratio of a "
               f"call's float32 kernel and plain errors {ratio:.3f}; final "
               f"cost kernels float32 "
               f"{s.final_cost!r} ({s.num_iterations} it), plain float32 "
@@ -2617,10 +2622,10 @@ def scene_log(name, text, ba_log):
     return routes, largest, widest
 
 
-def phase_box50d(device, card, workdir, *, name="box50d", scene=BOX50D,
-                 camera="OPENCV", bar=BOX50D_BAR, targets=BOX50D_TARGETS,
-                 matcher="exhaustive", overlap=10,
-                 require=("schur_gram", "schur_pcg", "match_top2")):
+def phase_scene(device, card, workdir, *, name="box50d", scene=BOX50D,
+                camera="OPENCV", bar=BOX50D_BAR, targets=BOX50D_TARGETS,
+                matcher="exhaustive", overlap=10,
+                require=("schur_gram", "schur_pcg", "match_top2")):
     """``automatic_reconstructor --matcher matcher --overlap overlap`` in
     this process on ``scene`` = (views, (H, W), seed, degrade) box views
     rendered here from the seed by the port's ``tools/synth_dataset``
@@ -2825,14 +2830,13 @@ def phase_hier300(device, card, workdir, *, name="hier300", scene=BOX300,
 
 def phase_hier(device, card, workdir, db):
     """``hierarchical_mapper --block_size 8 --overlap 3`` on phase
-    ``extractor``'s database (cell Hier-1600) with two spawned workers on
-    the card and, with PROFILE, first with one worker (this process,
-    under torch.profiler; cut from the default run for time): one model
-    with every image within HIER_BAR, every block's snapshot from the
-    card, ``schur_gram`` and ``schur_pcg`` launched by the blocks and the
-    joint refinement, and with PROFILE the two models byte-identical.
-    Returns the launches of the last run (this process's and the blocks'
-    snapshots')."""
+    ``extractor``'s database (cell Hier-1600), once with one worker (this
+    process; under torch.profiler with PROFILE) and once with two spawned
+    workers on the same card: one model with every image within
+    HIER_BAR, the two models byte-identical, every block's snapshot from
+    the card, ``schur_gram`` and ``schur_pcg`` launched in the one-worker
+    run.  Returns that run's launches; the two-worker run's are printed
+    (this process's and the blocks' snapshots')."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
@@ -2841,7 +2845,7 @@ def phase_hier(device, card, workdir, db):
 
     gt = read_gt_poses(os.path.join(workdir, "images", "gt_poses.txt"))
     runs = {}
-    for workers in (1, 2) if PROFILE else (2,):
+    for workers in (1, 2):
         out = os.path.join(workdir, f"hier_{workers}")
         for name in build.LAUNCHES:
             build.LAUNCHES[name] = 0
@@ -2864,8 +2868,9 @@ def phase_hier(device, card, workdir, db):
             go()
         stats, wall = got["stats"], got["wall"]
         launches = collections.Counter(build.LAUNCHES)
-        for snap in stats["snapshots"]:
-            launches.update(snap["launches"])
+        if workers > 1:  # the blocks ran in other processes
+            for snap in stats["snapshots"]:
+                launches.update(snap["launches"])
         launches = dict(launches)
         peak = torch.cuda.max_memory_allocated()
         check(stats["model"] is not None, "no model")
@@ -2899,12 +2904,11 @@ def phase_hier(device, card, workdir, db):
         check(rot <= HIER_BAR[0] and dirn <= HIER_BAR[1],
               "the hierarchical mapper's poses miss the bar")
         runs[workers] = (out, launches)
-    if PROFILE:
-        same = _model_bytes(os.path.join(runs[1][0], "0")) == _model_bytes(
-            os.path.join(runs[2][0], "0"))
-        phase("hier", f"one and two workers byte-identical={same}")
-        check(same, "one and two workers wrote different models")
-    launches = runs[2][1]
+    same = _model_bytes(os.path.join(runs[1][0], "0")) == _model_bytes(
+        os.path.join(runs[2][0], "0"))
+    phase("hier", f"one and two workers byte-identical={same}")
+    check(same, "one and two workers wrote different models")
+    launches = runs[1][1]
     check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
           "the hierarchical mapper launched no schur_gram or no schur_pcg")
     return launches
@@ -3657,7 +3661,7 @@ def main() -> int:
         gram_aos_stats = timed("gram_aos", phase_gram_aos, device, card)
         with tempfile.TemporaryDirectory() as workdir:
             launches, _ = timed("main", phase_main_path, device, card,
-                                workdir)
+                                workdir, warm_up=True)
             launches["schur_gram_aos"] = timed(
                 "dense_explicit", phase_dense_explicit, device, card,
                 workdir)["schur_gram_aos"]
@@ -3699,7 +3703,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             box50d_launches, box50d_errors = timed(
-                "box50d", phase_box50d, device, card, workdir)
+                "box50d", phase_scene, device, card, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("uncal", phase_uncal, device, card, workdir)

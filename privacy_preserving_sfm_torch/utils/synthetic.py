@@ -103,23 +103,30 @@ def synthetic_model(num_images: int, num_points: int, obs_per_point: int,
                                   replace=False)
                 pts.append(X[lo + m])
                 tracks.append(np.sort(cams))
-    pts = np.asarray(pts)
+    pts = np.asarray(pts).reshape(-1, 3)
 
-    per_image_lines = [[] for _ in range(num_images)]
-    per_image_pid = [[] for _ in range(num_images)]
-    for p, cams in enumerate(tracks):
-        for c in cams:
-            xc = R[c] @ pts[p] + ts[c]
-            uv = xc[:2] / xc[2] + rng.normal(0, meas_noise, 2)
-            line = np.cross(rng.standard_normal(3), np.append(uv, 1.0))
-            per_image_lines[c].append(line / np.linalg.norm(line[:2]))
-            per_image_pid[c].append(p)
+    # One observation a (point, camera) of the tracks, in track order; each
+    # draws 2 numbers of noise and 3 for the line's direction.
+    obs_p = np.repeat(np.arange(num_points), [len(c) for c in tracks])
+    obs_c = np.concatenate(tracks or [np.zeros(0, int)]).astype(int)
+    draws = rng.standard_normal((len(obs_p), 5))
+    # matmul, not einsum: its sums round as one observation's ``R @ x`` and
+    # ``x.dot(x)`` do, so batching leaves every line as it would be alone.
+    xc = np.matmul(R[obs_c], pts[obs_p][:, :, None])[:, :, 0] + ts[obs_c]
+    uv = xc[:, :2] / xc[:, 2:] + meas_noise * draws[:, :2]
+    line = np.cross(draws[:, 2:], np.concatenate(
+        [uv, np.ones((len(uv), 1))], axis=1))
+    ab = line[:, None, :2]
+    line /= np.sqrt(np.matmul(ab, ab.transpose(0, 2, 1)))[:, 0]
+    by_image = np.argsort(obs_c, kind="stable")
+    per_image_lines = np.split(line[by_image], np.cumsum(
+        np.bincount(obs_c, minlength=num_images))[:-1])
 
     rec = Reconstruction()
     rec.add_camera(Camera(camera_id=1, model="SIMPLE_PINHOLE", width=width,
                           height=height, params=np.asarray(PARAMS)))
     for c in range(num_images):
-        lines = np.asarray(per_image_lines[c]).reshape(-1, 3)
+        lines = per_image_lines[c]
         q = qs[c] + rng.normal(0, Q_NOISE, 4)
         rec.add_image(Image(
             image_id=c + 1, name=f"image{c + 1:05d}.png", camera_id=1,

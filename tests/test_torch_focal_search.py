@@ -12,9 +12,12 @@ initializer, bring every registered camera's focal within 3 % of the
 truth, and do no worse than the reference package's controller on the
 same database: at least its registered count, focal errors within twice
 its largest.  The reference run takes about 90 s on a CPU, so its numbers
-are kept here; ``python tests/torch_focal_bar.py`` measures them again.
+are kept here beside a digest of the database they were measured on; the
+test fails if the scene no longer gives that database, and
+``python tests/torch_focal_bar.py`` measures both again.
 """
 
+import hashlib
 import sqlite3
 
 import numpy as np
@@ -35,7 +38,10 @@ torch.set_num_threads(2)
 TRUE_FOCAL, LIFT_FOCAL, SEED, NUM_IMAGES = 500.0, 560.0, 7, 8
 # The reference controller on this database (tests/torch_focal_bar.py, on
 # a CPU): 8 of 8 registered, searches at images 8, 7, 2 and 1, largest
-# relative focal error 7.355282358503245e-07, ATE 2.09e-07.
+# relative focal error 7.355282358503245e-07, ATE 2.09e-07; the database's
+# database_digest.
+REFERENCE_DB_DIGEST = (
+    "98cc0f0738e4ae288c8fb31b8a661c5c9d8ab96e173d7ce256f73a8977ba9c1d")
 REFERENCE_REGISTERED = 8
 REFERENCE_FOCAL_ERROR = 7.355282358503245e-07
 FOCAL_BAR = 0.03
@@ -60,10 +66,27 @@ def per_camera_scene(path):
     return scene
 
 
+def database_digest(path):
+    """SHA-256 of every row of every table, in table-name and row order."""
+    digest = hashlib.sha256()
+    conn = sqlite3.connect(path)
+    for (table,) in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type='table' AND name NOT "
+            "LIKE 'sqlite_%' ORDER BY name"):
+        digest.update(table.encode())
+        for row in conn.execute(f"SELECT * FROM {table} ORDER BY rowid"):
+            digest.update(repr(row).encode())
+    conn.close()
+    return digest.hexdigest()
+
+
 def test_focal_search_runs_once_per_camera_registered_after_init(
         tmp_path, monkeypatch):
     path = str(tmp_path / "cameras.db")
     qs, ts, _, image_ids = per_camera_scene(path)
+    assert database_digest(path) == REFERENCE_DB_DIGEST, (
+        "the scene's database changed: measure the reference again with "
+        "tests/torch_focal_bar.py")
     searched = []
     search = IncrementalMapper._focal_search
 

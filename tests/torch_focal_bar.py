@@ -7,9 +7,9 @@ to.
 Builds the scene (one prior-less camera an image, lines lifted 12 % off),
 runs the reference's ``IncrementalMapperController`` with
 ``ba_refine_focal_length`` on the CPU in float64 (x64, as its tests run)
-and prints the registered count, the images its ``_focal_search`` ran
-at, every registered camera's focal, the largest relative focal error
-and the ATE.  About 90 s on a CPU.
+and prints the database's digest, the registered count, the images its
+``_focal_search`` ran at, every registered camera's focal, the largest
+relative focal error and the ATE.  About 90 s on a CPU.
 """
 
 import dataclasses
@@ -26,7 +26,9 @@ from privacy_preserving_sfm_tpu.sfm.controller import (  # noqa: E402
     IncrementalMapperController,
 )
 from test_e2e_synthetic import FAST, ate_rmse  # noqa: E402
-from test_torch_focal_search import TRUE_FOCAL, per_camera_scene  # noqa: E402
+from test_torch_focal_search import (  # noqa: E402
+    TRUE_FOCAL, database_digest, per_camera_scene,
+)
 
 
 def main():
@@ -47,7 +49,8 @@ def main():
     focals = {iid: float(rec.cameras[rec.images[iid].camera_id].params[0])
               for iid in sorted(rec.reg_image_ids)}
     err = max(abs(f - TRUE_FOCAL) / TRUE_FOCAL for f in focals.values())
-    print(f"registered {rec.num_registered()} of {len(image_ids)}; focal "
+    print(f"database digest {database_digest(path)}; registered "
+          f"{rec.num_registered()} of {len(image_ids)}; focal "
           f"searches at images {searched}; focals {focals}; largest "
           f"relative focal error {err!r}; ATE "
           f"{ate_rmse(rec, qs, ts, image_ids)!r}")

@@ -115,7 +115,7 @@ def main():
         cs.timed("hier300", cs.phase_hier300, device, card, workdir)
     else:
         cs.timed("box300", functools.partial(
-            cs.phase_box50d, name="box300", scene=cs.BOX300,
+            cs.phase_scene, name="box300", scene=cs.BOX300,
             camera="SIMPLE_PINHOLE", bar=cs.BOX300_BAR,
             targets=cs.BOX300_TARGETS, matcher="sequential",
             overlap=cs.SEQUENTIAL_OVERLAP,
