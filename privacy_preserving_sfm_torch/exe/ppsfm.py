@@ -12,9 +12,10 @@ Ported subcommands, with the flags of the reference CLI
   and the line lift of every image with a gravity sidecar, written to the
   database as descriptors, lines, aligned flags and gravity.  Images are
   batched by (shape, camera model, number of params, mask); image k of
-  the sorted listing draws from a ``torch.Generator`` seeded from
-  (``--seed``, k), so a rerun with the same seed on the same device
-  writes the same bytes;
+  the sorted listing draws from a CPU ``torch.Generator`` seeded from
+  (``--seed``, k) whatever ``--device`` says, so a rerun with the same
+  seed writes the same bytes and the card draws the CPU's split and line
+  directions;
 * the matchers ``exhaustive_matcher``, ``sequential_matcher``,
   ``spatial_matcher``, ``transitive_matcher`` and ``matches_importer``
   (``--match_type pairs`` or ``raw``) (``:171-335, 560-606``), which read
@@ -257,8 +258,8 @@ def _flush_extraction_batch(db, batch, sift_opts, args, device):
             device=device, dtype=dtype)
 
     masks = stack("mask") if batch[0]["mask"] is not None else None
-    generators = [torch.Generator(device).manual_seed(r["seed"])
-                  for r in padded]
+    # CPU generators on every device: the card writes the CPU's draws.
+    generators = [torch.Generator().manual_seed(r["seed"]) for r in padded]
     lf = extraction.extract_and_lift_batch(
         stack("img"), batch[0]["model"], stack("params"),
         stack("gravity", torch.float32), generators, sift_opts,

@@ -13,8 +13,9 @@ descriptors, lines, aligned flags and gravity leave this module.
 
 Images are read with PIL where it is installed, as the reference does;
 without PIL, PNG files go through ``utils/png.py`` and any other format
-raises.  Random draws come from a ``torch.Generator`` per image; the core,
-``lift_features_with_draws``, takes the draws as tensors.
+raises.  Random draws come from a CPU ``torch.Generator`` per image on
+every device, so the card writes the CPU's split and line directions; the
+core, ``lift_features_with_draws``, takes the draws as tensors.
 """
 
 from __future__ import annotations
@@ -199,6 +200,18 @@ def resize_mask(mask: np.ndarray, shape) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def normalize_u8(images: torch.Tensor) -> torch.Tensor:
+    """uint8 images to float32 in [0, 1]: each level i becomes the CPU's
+    correctly rounded i / 255, looked up on the images' device.  On CUDA
+    a division by the host scalar 255 multiplies by its rounded
+    reciprocal, one unit in the last place off for some levels; SIFT then
+    orders its keypoints otherwise, and the aligned split and the line
+    directions, drawn in that order, land on other keypoints than the
+    CPU's."""
+    levels = torch.arange(256, dtype=torch.float32) / 255.0
+    return levels.to(images.device)[images.long()]
+
+
 def aligned_split_from_uniforms(valid: torch.Tensor, uniforms: torch.Tensor,
                                 ratio: float = 0.5) -> torch.Tensor:
     """Exactly ``floor(ratio * num_valid)`` aligned keypoints per row of
@@ -241,13 +254,17 @@ def lift_features(feats: sift_mod.SiftFeatures, camera_model: str,
                   aligned_ratio: float,
                   generators: Sequence[torch.Generator]) -> LiftedFeatures:
     """``lift_features_with_draws``, image b drawing its split and then its
-    line directions from ``generators[b]``."""
+    line directions from ``generators[b]``.  The generators must live on
+    the CPU whatever the features' device (``line_ops.
+    require_cpu_generator``): the draws are made there and moved, so the
+    card and the CPU lift with the same samples."""
     K, dev = feats.valid.shape[1], feats.valid.device
     dtype = torch.promote_types(feats.keypoints.dtype, camera_params.dtype)
-    uniforms = torch.stack([torch.rand(K, generator=g, device=dev)
-                            for g in generators])
-    normals = torch.stack([torch.randn(K, 3, generator=g, dtype=dtype,
-                                       device=dev) for g in generators])
+    generators = [line_ops.require_cpu_generator(g) for g in generators]
+    uniforms = torch.stack([torch.rand(K, generator=g)
+                            for g in generators]).to(dev)
+    normals = torch.stack([torch.randn(K, 3, generator=g, dtype=dtype)
+                           for g in generators]).to(dev)
     return lift_features_with_draws(feats, camera_model, camera_params,
                                     gravity, aligned_ratio, uniforms,
                                     normals)
@@ -265,13 +282,15 @@ def extract_and_lift_batch(images: torch.Tensor, camera_model: str,
     """The per-image front end on a batch of same-shape images: SIFT, the
     aligned split and the line lift, on ``images``' device.
 
-    images (B, H, W) uint8 (normalized to [0, 1] on the device) or float;
+    images (B, H, W) uint8 (normalized to [0, 1] by ``normalize_u8``) or
+    float;
     camera_params (B, P); gravities (B, 3); ``masks`` (B, H, W) bool drops
-    keypoints whose rounded position falls on False; one generator per
-    image.  Counterpart of the reference's ``extract_and_lift_batch_jit``.
+    keypoints whose rounded position falls on False; one CPU generator
+    per image.  Counterpart of the reference's
+    ``extract_and_lift_batch_jit``.
     """
     if not images.is_floating_point():
-        images = images.float() / 255.0
+        images = normalize_u8(images)
     feats = sift_mod.extract_sift(images, sift_options)
     if masks is not None:
         B, h, w = images.shape

@@ -46,6 +46,13 @@ def descriptor_dots(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
     return torch.matmul(desc1.float(), desc2.float().transpose(-1, -2))
 
 
+def descriptor_distances(desc1: torch.Tensor, desc2: torch.Tensor
+                         ) -> torch.Tensor:
+    """Angular distances acos(clip(d1 . d2 / 512^2)) of uint8 descriptors,
+    (..., N1, N2) float32."""
+    return _to_angle(descriptor_dots(desc1, desc2))
+
+
 def _to_angle(dots: torch.Tensor) -> torch.Tensor:
     return torch.arccos(torch.clamp(dots * DIST_NORM, -1.0, 1.0))
 

@@ -51,6 +51,11 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (w, -x, -y, -z): the inverse of a unit quaternion."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (w,x,y,z) -> rotation matrix. (..., 4) -> (..., 3, 3)."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -119,6 +124,41 @@ def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     q_pi = torch.cat([torch.zeros_like(d), ortho], dim=-1)
     q = torch.where(d < (-1.0 + 1e-9), q_pi, q)
     return quat_normalize(q)
+
+
+def pose_compose(qvec: torch.Tensor, tvec: torch.Tensor) -> torch.Tensor:
+    """(qvec, tvec) -> 3x4 projection matrix [R | t], qvec normalized
+    first (``ComposeProjectionMatrix``, reference ``src/base/pose.cc``)."""
+    R = quat_to_rotmat(quat_normalize(qvec))
+    return torch.cat([R, tvec[..., :, None]], dim=-1)
+
+
+def pose_inverse(qvec: torch.Tensor, tvec: torch.Tensor):
+    """Invert a world->camera pose. Returns (qvec_inv, tvec_inv)."""
+    q_inv = quat_conjugate(quat_normalize(qvec))
+    return q_inv, -quat_rotate(q_inv, tvec)
+
+
+def projection_center(qvec: torch.Tensor, tvec: torch.Tensor
+                      ) -> torch.Tensor:
+    """Camera centre in world coordinates: C = -R^T t."""
+    return -quat_rotate(quat_conjugate(quat_normalize(qvec)), tvec)
+
+
+def pose_relative(q1: torch.Tensor, t1: torch.Tensor, q2: torch.Tensor,
+                  t2: torch.Tensor):
+    """Relative pose taking camera-1 frame to camera-2 frame: (q21, t21)."""
+    q21 = quat_multiply(q2, quat_conjugate(quat_normalize(q1)))
+    return q21, t2 - quat_rotate(q21, t1)
+
+
+def rotmat_angular_distance(R1: torch.Tensor, R2: torch.Tensor
+                            ) -> torch.Tensor:
+    """Angle (radians) of the relative rotation R1 R2^T. (..., 3, 3) x2 ->
+    (...)."""
+    tr = torch.einsum("...ij,...kj->...ik", R1, R2).diagonal(
+        dim1=-2, dim2=-1).sum(-1)
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
 
 
 def cayley_to_rotmat(c: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,21 @@ def lift_with_directions(normalized_points: torch.Tensor,
     return normalize_lines(torch.linalg.cross(direction, x_hom, dim=-1))
 
 
+def require_cpu_generator(generator: torch.Generator) -> torch.Generator:
+    """``generator`` itself, if it lives on the CPU; else a ValueError.
+
+    The front end draws its aligned split and line directions on the CPU
+    for every device and moves the draws to the features' device, so the
+    card and the CPU write the same database for the same seed (a CUDA
+    generator is another random stream, not the CPU's rounded)."""
+    if generator.device.type != "cpu":
+        raise ValueError(
+            "the line lift draws from CPU torch.Generators on every device "
+            f"(one on {generator.device} gives another random stream); "
+            "pass torch.Generator() and the draws move to the device")
+    return generator
+
+
 def lift_keypoints_to_lines(normalized_points: torch.Tensor,
                             gravity: torch.Tensor,
                             aligned_mask: torch.Tensor,
@@ -55,12 +70,14 @@ def lift_keypoints_to_lines(normalized_points: torch.Tensor,
 
     Semantics of ``LineFeatureWriterThread`` (``extraction.cc:476-504``);
     the random directions are standard normal draws from ``generator``,
-    which must live on the points' device.
+    which must live on the CPU (``require_cpu_generator``), moved to the
+    points' device.
     """
     rnd = torch.randn(normalized_points.shape[:-1] + (3,),
-                      generator=generator, dtype=normalized_points.dtype,
-                      device=normalized_points.device)
-    return lift_with_directions(normalized_points, gravity, aligned_mask, rnd)
+                      generator=require_cpu_generator(generator),
+                      dtype=normalized_points.dtype)
+    return lift_with_directions(normalized_points, gravity, aligned_mask,
+                                rnd.to(normalized_points.device))
 
 
 def project_points(proj: torch.Tensor, points3d: torch.Tensor):

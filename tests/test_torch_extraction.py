@@ -199,12 +199,12 @@ def test_mask_drops_keypoints_by_their_rounded_position(device):
             torch.tensor([[0.0, 1.0, 0.0]] * 2, device=dev))
 
     def run(masks):
-        gens = [torch.Generator(dev).manual_seed(i) for i in range(2)]
+        gens = [torch.Generator().manual_seed(i) for i in range(2)]
         return tx.extract_and_lift_batch(img, *args, gens, opts, 0.5, masks)
 
     full = run(None)
     half = run(mask)
-    feats = ts.extract_sift(img.float() / 255.0, opts)
+    feats = ts.extract_sift(tx.normalize_u8(img), opts)
     x = torch.round(feats.keypoints[..., 0]).clamp(0, 159)
     assert torch.equal(half.valid, full.valid & (x < 80))
     assert 0 < half.valid.sum() < full.valid.sum()
@@ -212,7 +212,7 @@ def test_mask_drops_keypoints_by_their_rounded_position(device):
     # The split counts each image's own valid keypoints.
     assert torch.equal(half.aligned.sum(1), half.valid.sum(1) // 2)
     one = tx.extract_and_lift(img[1], args[0], args[1][1], args[2][1],
-                              torch.Generator(dev).manual_seed(1), opts)
+                              torch.Generator().manual_seed(1), opts)
     # One image alone: a convolution over another batch size may sum in
     # another order, so descriptors may move by a quantum.
     torch.testing.assert_close(one.valid[0], full.valid[1])

@@ -283,6 +283,25 @@ def test_match_descriptors_matches_reference():
     assert int(got.num_matches) == int(ref.num_matches) == 100
 
 
+@pytest.mark.parametrize("n1,n2", [(256, 300), (1, 77), (130, 1)])
+def test_descriptor_distances_matches_reference(n1, n2):
+    """The angular distance matrix, float32 to 1e-6: the dots are exact
+    integers in both packages, so only the two arccos implementations
+    differ.  Duplicated descriptors give the distances near 0, and a
+    zero descriptor the distance pi/2."""
+    rng = np.random.default_rng(n1 + n2)
+    d1 = sift_like(rng.dirichlet(np.full(128, 0.2), n1))
+    d2 = sift_like(rng.dirichlet(np.full(128, 0.2), n2))
+    k = min(n1, n2, 40)
+    d2[:k] = d1[:k]
+    d1[-1] = 0
+    want = np.asarray(jm.descriptor_distances(jnp.asarray(d1),
+                                              jnp.asarray(d2)))
+    got = tm.descriptor_distances(torch.from_numpy(d1), torch.from_numpy(d2))
+    assert got.dtype == torch.float32 and got.shape == (n1, n2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("bad", ["device", "dtype", "shape", "mask"])
 def test_match_kernel_wrapper_rejects_bad_inputs(bad):
     d1 = torch.zeros(1, 8, 128, dtype=torch.uint8)

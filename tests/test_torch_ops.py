@@ -192,3 +192,46 @@ def test_line_ba_residual_and_jacobians(model):
                                atol=ATOL)
     np.testing.assert_allclose(Jp_t.numpy(), np.asarray(Jp_j), rtol=0,
                                atol=ATOL)
+
+
+def _poses(rng, n):
+    """n unnormalized quaternions (norms 0.5-2) and translations."""
+    q = _quats(rng, n) * rng.uniform(0.5, 2.0, (n, 1))
+    return q, rng.standard_normal((n, 3)) * 3.0
+
+
+@pytest.mark.parametrize("fn,nargs", [
+    ("quat_conjugate", 1), ("pose_compose", 2), ("pose_inverse", 2),
+    ("projection_center", 2), ("pose_relative", 4)])
+def test_pose_functions_match_jax(fn, nargs):
+    """Seeded float64 poses (unnormalized quaternions) through the JAX
+    function and the port's, to 1e-12."""
+    rng = np.random.default_rng(len(fn))
+    q1, t1 = _poses(rng, 32)
+    q2, t2 = _poses(rng, 32)
+    args = (q1, t1, q2, t2)[:nargs]
+    want = getattr(jlie, fn)(*(jnp.asarray(a) for a in args))
+    got = getattr(tlie, fn)(*(torch.tensor(a) for a in args))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-12)
+
+
+def test_rotmat_angular_distance_matches_jax():
+    """Random rotation pairs (angles well inside (0, pi), where acos is
+    well conditioned) and batched shapes, float64 to 1e-12."""
+    rng = np.random.default_rng(9)
+    R1 = np.stack([tlie_np.quat_to_rotmat(q)
+                   for q in _quats(rng, 24)]).reshape(4, 6, 3, 3)
+    R2 = np.stack([tlie_np.quat_to_rotmat(q)
+                   for q in _quats(rng, 24)]).reshape(4, 6, 3, 3)
+    want = np.asarray(jlie.rotmat_angular_distance(jnp.asarray(R1),
+                                                   jnp.asarray(R2)))
+    got = tlie.rotmat_angular_distance(torch.tensor(R1),
+                                       torch.tensor(R2)).numpy()
+    assert got.shape == (4, 6)
+    assert 0.05 < want.min() and want.max() < np.pi - 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
