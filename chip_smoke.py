@@ -19,12 +19,15 @@ to the dense-block implicit solver (phase ``dense_implicit``);
 largest global BA the mapper ran at the reference's 300-view scale (phase
 ``ba300``: the SoA route with the PCG on its grid path, two solves
 bit-equal, every Gram and PCG call of the solve held against its plain
-version in float32 and float64 as in phase ``mapper``); and
-``exhaustive_matcher`` on a seeded synthetic database of 64 images x 8,192
-descriptors (the reference's default feature cap; 2,016 pairs), checked
-against the generator's true correspondences, against the plain version
-on 16 pairs and against the bounded-memory block mode, then once more
-under torch.profiler; the front end (phase ``sift``: SIFT and the line
+version in float32 and float64 as in phase ``mapper``); the same at
+``BA1000``, 1,000 cameras and 1.2 M observations, the reference's 512 <
+C <= 1024 regime (phase ``ba1000``, whose plain Gram sums V a chunk of
+points at a time); and ``exhaustive_matcher`` on a seeded synthetic
+database of 64 images x 8,192 descriptors (the reference's default
+feature cap; 2,016 pairs), checked against the generator's true
+correspondences, against the plain version on 16 pairs and against the
+bounded-memory block mode, then once more under torch.profiler; the
+front end (phase ``sift``: SIFT and the line
 lift at ``bench.py``'s shape, its split by span, the card against the CPU
 and against itself, repeatability and inlier rate on rendered plane pairs
 against bars from the reference package, one image at the default cap);
@@ -36,12 +39,12 @@ database (phase ``line_init``): twice on the card (byte-identical models,
 4 images, at least ``MIN_INIT_POINTS`` points, poses within
 ``LINE_INIT_BAR`` of the rendering's truth), once on the CPU (the same
 images, within the bar) and once under torch.profiler; ``mapper`` on that
-database (phase ``mapper``, cell Mapper-1600): twice on the card (one
-model, all 16 images, poses within ``MAPPER_BAR``,
-byte-identical models, ``schur_gram`` and ``schur_pcg`` launched, and
-the first run's largest local and global BA solved again with the
-kernels and with the plain versions, every Gram and PCG call of the
-solve checked against its plain version on the same inputs); and
+database (phase ``mapper``, cell Mapper-1600): on the card (one model,
+all 16 images, poses within ``MAPPER_BAR``, ``schur_gram`` and
+``schur_pcg`` launched, and the run's largest local and global BA
+solved again with the kernels and with the plain versions, every Gram
+and PCG call of the solve checked against its plain version on the same
+inputs); and
 ``hierarchical_mapper --block_size 8 --overlap 3`` on that database
 (phase ``hier``, cell Hier-1600): with one worker and with two spawned
 workers on the card (byte-identical models, every block's snapshot from
@@ -79,9 +82,14 @@ float64 run), with the wall, the LM iterations and the all-reduces'
 count and share; then the Matcher cell's 2,016 pairs split over the two
 ranks, ``match_top2.cu`` launched on each, the gathered result equal to
 the unsharded match in every field.  With ``PPSFM_SMOKE_PROFILE=1``,
-phase ``mapper``'s second run and phase ``hier``'s one-worker run go
-under torch.profiler, split by span, and phase ``uncal`` runs its
-controller a second time under it (byte-identical models required).  Prints one line
+phase ``mapper`` runs a second time and phase ``uncal`` runs its
+controller a second time, each under torch.profiler split by span
+(byte-identical models required), and phase ``hier``'s one-worker run
+goes under it too.  A spawned child process makes and writes the seeded
+models of phases ``ba300``, ``ba1000`` and ``dense_implicit`` beside
+phases ``matcher``, ``parallel`` and ``sift`` (no kernel timing of the
+kernels line runs beside it), and has ended before ``ba300``, which runs
+after ``sift``.  Prints one line
 per phase and each phase's
 seconds, then a JSON line with each kernel's launches, error, times and
 bound (the larger of its operations at the H100's peak for their type and
@@ -101,6 +109,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -124,10 +133,13 @@ RAGGED = (32, 20000, 100)
 GRAM_KERNEL = r"gram_(compact|strip|reduce)_kernel"
 PCG_KERNEL = r"pcg_(cluster|grid)_kernel"
 # C for the PCG checks: a local BA (16), BA-100 (reported in the kernels
-# line), the Gram's regimes and the explicit ceiling (n = 6,144); at the
+# line), the Gram's regimes, BA1000's C (n = 6,000, no multiple of 128:
+# held here in float32 at 1e-4 on a well-posed system, where phase
+# ba1000's float32 calls are held only within plain float32's own error)
+# and the explicit ceiling (n = 6,144); at the
 # C of PCG_BOTH, both of the kernel's paths are checked and timed (the
 # cluster path where it fits), to place the crossover between them.
-PCG_CAMS = [16, 100, 320, 640, 1024]
+PCG_CAMS = [16, 100, 320, 640, 1000, 1024]
 PCG_BOTH = [16, 50, 100, 109, 155]
 PCG_MAIN = 100
 CG_ITERS = 30
@@ -263,6 +275,14 @@ HIER300_BAR = (max(2 * HIER300_TARGETS["ate_rmse"], 0.005),
 # 155): Box300's last global BA as its PPSFM_BA_LOG measured it on an H100
 # (tools/torch_scale300.py box300).
 BA300 = (300, 13409, 128, 755822)
+# Phase ba1000: bundle_adjuster on a model of MAIN's generator at the
+# reference's C = 1,000 crossover row (reports/ba_crossover_r5.json: C
+# 1000, P 200,000, 1,200,000 observations), the regime 512 < C <= 1024 of
+# its route table (the SoA solver with the blocked Gram, gram_soa_blocked)
+# that no other phase runs inside the LM loop; the size of a 1DSfM
+# collection such as Vienna Cathedral (836 images).
+BA1000 = dict(num_images=1000, num_points=200000, obs_per_point=6,
+              meas_noise=2e-4)
 # hierarchical_mapper on the extractor's database (cell Hier-1600) with
 # HIER = (block size, overlap): 3 blocks of 8, 8 and 6 images.  Its bar is
 # MAPPER_BAR's kind: twice the reference CLI's errors on a CPU-written
@@ -823,37 +843,112 @@ def phase_pcg(device, card, sync, reps=5):
     return main_stats
 
 
-def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
-                    path="cluster", check_ba=False, warm_up=False):
-    """``bundle_adjuster --device`` in float32 on a model made by
-    ``synthetic_model(seed=0, **cfg)``: ``schur_gram``, ``schur_pcg`` and
-    the PCG's ``path`` launched, the output model finite with the line
-    error at least halved, and the same solve again under torch.profiler
-    bit-equal in as many LM iterations.  The final cost is held against a
-    float64 solve through the plain Gram and PCG or, with ``check_ba``,
-    the solve against the plain route by ``check_mapper_ba`` (every Gram
-    and PCG call, float32 and float64).  With ``warm_up`` (the first solve
-    in the process) a small solve comes first.  Returns the launches and,
-    with ``check_ba``, ``check_mapper_ba``'s errors."""
-    import torch
-
-    from privacy_preserving_sfm_torch.exe import ppsfm
-    from privacy_preserving_sfm_torch.kernels import build
+def write_model(in_dir, cfg, seed):
+    """``synthetic_model(seed=seed, **cfg)`` written as text to ``in_dir``;
+    returns what the phases print and hold of it (its squared line error
+    sum ``err_in`` among them)."""
     from privacy_preserving_sfm_torch.utils.synthetic import (
         line_error_sum, synthetic_model,
     )
 
     t0 = time.perf_counter()
-    in_dir = os.path.join(workdir, "in")
-    out_dir = os.path.join(workdir, "out")
-    start = synthetic_model(seed=0, **cfg)
+    start = synthetic_model(seed=seed, **cfg)
     start.write_text(in_dir)
-    err_in = line_error_sum(start)
-    K = max(len(p.track) for p in start.points3d.values())
-    phase(name, f"synthetic model: {start.num_registered()} images, "
-          f"{len(start.points3d)} points, {start.num_observations()} "
-          f"observations, longest track {K}, made and written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    return dict(in_dir=in_dir, err_in=line_error_sum(start),
+                images=start.num_registered(), points=len(start.points3d),
+                observations=start.num_observations(),
+                longest=max(len(p.track) for p in start.points3d.values()),
+                seconds=time.perf_counter() - t0)
+
+
+def made_models():
+    """(phase, cfg, seed) of the models ``start_models`` makes, in the order
+    the phases take them."""
+    return [("ba300", ba300_model(BA300), 0), ("ba1000", BA1000, 0),
+            ("dense_implicit", IMPLICIT, 3)]
+
+
+# Seconds ba300 waits for the models of start_models before it fails.
+MODELS_TIMEOUT = 300
+
+
+def start_models(workdir):
+    """A pool of one spawned process (one BLAS thread) that makes and
+    writes each model of ``made_models()`` into ``workdir/<phase>``
+    (``write_model``) while this process runs the phases before theirs:
+    making and writing a model of 0.6-1.2 M observations is host work the
+    card need not wait for.  Returns the pool and each phase's pending
+    result."""
+    import multiprocessing
+
+    with environ({"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
+                  "MKL_NUM_THREADS": "1"}):
+        pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, {name: pool.apply_async(
+        write_model, (os.path.join(workdir, name), cfg, seed))
+        for name, cfg, seed in made_models()}
+
+
+def finish_models(pool, pending):
+    """The facts (``write_model``) of every model of ``start_models``, all
+    within MODELS_TIMEOUT seconds; then the pool is closed, so that no
+    child runs beside the phases that take them."""
+    t0 = time.perf_counter()
+    models = {name: result.get(timeout=max(
+        0.0, MODELS_TIMEOUT - (time.perf_counter() - t0)))
+        for name, result in pending.items()}
+    pool.close()
+    pool.join()
+    phase("models", f"{', '.join(models)} made and written by the maker "
+          f"process, waited {time.perf_counter() - t0:.1f} s for them")
+    return models
+
+
+def seeded_model(name, cfg, seed, workdir, models):
+    """Phase ``name``'s model ``synthetic_model(seed=seed, **cfg)``: from
+    ``models`` (``finish_models``) when given, else made and written here
+    into ``workdir/in``.  Prints its size and where it was made; returns
+    its facts (``write_model``)."""
+    if models is None:
+        start = write_model(os.path.join(workdir, "in"), cfg, seed)
+        where = "here"
+    else:
+        start = models[name]
+        where = "by the maker process"
+    phase(name, f"synthetic model: {start['images']} images, "
+          f"{start['points']} points, {start['observations']} "
+          f"observations, longest track {start['longest']}, made and "
+          f"written in {start['seconds']:.1f} s {where}")
+    return start
+
+
+def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
+                    path="cluster", check_ba=False, warm_up=False,
+                    models=None):
+    """``bundle_adjuster --device`` in float32 on a model made by
+    ``synthetic_model(seed=0, **cfg)``: ``schur_gram``, ``schur_pcg`` and
+    the PCG's ``path`` launched, the output model finite with the line
+    error at least halved, and a second solve bit-equal in as many LM
+    iterations.  Without ``check_ba``, the final cost is held against a
+    float64 solve through the plain Gram and PCG, and the second solve is
+    the CLI's again under torch.profiler.  With ``check_ba``, the solve is
+    held against the plain route by ``check_mapper_ba`` (every Gram and
+    PCG call, float32 and float64), whose kernel re-solve in this process
+    is the second solve (at BA300's and BA1000's sizes, a CLI run's text
+    IO and the profiler would take most of the phase).  With ``warm_up``
+    (the first solve in the process) a small solve comes first.  The
+    model comes from ``models`` (``finish_models``) under ``name`` when
+    given.  Returns the launches and, with ``check_ba``,
+    ``check_mapper_ba``'s errors."""
+    import torch
+
+    from privacy_preserving_sfm_torch.exe import ppsfm
+    from privacy_preserving_sfm_torch.kernels import build
+    from privacy_preserving_sfm_torch.utils.synthetic import synthetic_model
+
+    out_dir = os.path.join(workdir, "out")
+    start = seeded_model(name, cfg, 0, workdir, models)
+    in_dir, err_in = start["in_dir"], start["err_in"]
 
     if warm_up:
         # The first solve in a process pays one-time costs (lazy loading
@@ -886,7 +981,7 @@ def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
     peak = torch.cuda.max_memory_allocated()
     summary = mapper.last_summary
     solve_s = mapper.phase_times["ba_solve"]
-    nobs = start.num_observations()
+    nobs = start["observations"]
     rate = nobs * summary.num_iterations / solve_s
     phase(name, f"bundle_adjuster --device {device.type} (float32): route "
           f"{tuple(mapper.last_route)}, wall {wall:.3f} s, ba_solve "
@@ -902,17 +997,18 @@ def phase_main_path(device, card, workdir, *, name="main", cfg=MAIN,
     if check_ba:
         errors = check_mapper_ba(device, card, solves, name,
                                  kinds=("global",))
-        solves.clear()
-    else:
-        errors = None
-        float64_plain(device, in_dir, summary)
+        phase(name, f"peak device memory of the solve and its checks "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | "
+              f"{card}")
+        return launches, errors
+    float64_plain(device, in_dir, summary)
     again = gram_share(name, card, lambda: ppsfm.main([
         "bundle_adjuster", "--input_path", in_dir, "--output_path",
         os.path.join(workdir, "out_prof"), "--max_num_iterations",
         str(LM_ITERS), "--device", device.type, "--dtype", "float32"]))
     check_same_solve(name, out_dir, os.path.join(workdir, "out_prof"),
                      summary, again.last_summary)
-    return launches, errors
+    return launches, None
 
 
 def float64_plain(device, in_dir, summary):
@@ -969,16 +1065,28 @@ def ba300_model(shape, seed=300):
                 meas_noise=MAIN["meas_noise"])
 
 
-def phase_ba300(device, card, workdir):
+def phase_ba300(device, card, workdir, models=None):
     """``bundle_adjuster`` (phase ``main``'s code) at BA300, the shape of
     the largest global BA the port's mapper ran at the reference's
     300-view scale: the SoA route with the PCG on "auto", which takes the
     grid path there; every Gram and PCG call of the solve held against
-    the plain version (``check_mapper_ba``).  Returns the launches and
-    those errors."""
+    the plain version and the solve made again, bit-equal
+    (``check_mapper_ba``).  Returns the launches and those errors."""
     return phase_main_path(device, card, workdir, name="ba300",
                            cfg=ba300_model(BA300), path="grid",
-                           check_ba=True)
+                           check_ba=True, models=models)
+
+
+def phase_ba1000(device, card, workdir, models=None):
+    """``bundle_adjuster`` (phase ``main``'s code) at BA1000, the
+    reference's 512 < C <= 1024 regime: the SoA route with the PCG on
+    "auto", which takes the grid path there; every Gram and PCG call of
+    the solve held against the plain version and the solve made again,
+    bit-equal (``check_mapper_ba``).  Returns the launches and those
+    errors."""
+    return phase_main_path(device, card, workdir, name="ba1000",
+                           cfg=BA1000, path="grid", check_ba=True,
+                           models=models)
 
 
 def check_same_solve(name, out_a, out_b, summary_a, summary_b):
@@ -1183,26 +1291,15 @@ def phase_dense_explicit(device, card, workdir):
     return launches
 
 
-def phase_dense_implicit(device, card, workdir):
+def phase_dense_implicit(device, card, workdir, models=None):
     """A 1,280-camera global BA with no override: the mapper sends it to
-    the dense solver's implicit CG, which runs no Schur kernel."""
-    from privacy_preserving_sfm_torch.models.reconstruction import (
-        Reconstruction,
-    )
+    the dense solver's implicit CG, which runs no Schur kernel.  The model
+    comes from ``models`` when given."""
     from privacy_preserving_sfm_torch.optim import ba as ba_mod
-    from privacy_preserving_sfm_torch.utils.synthetic import (
-        line_error_sum, synthetic_model,
-    )
 
-    t0 = time.perf_counter()
-    in_dir = os.path.join(workdir, "in")
     out_dir = os.path.join(workdir, "out")
-    synthetic_model(seed=3, **IMPLICIT).write_text(in_dir)
-    start = Reconstruction.read_text(in_dir)
-    nobs = start.num_observations()
-    phase("dense_implicit", f"synthetic model: {start.num_registered()} "
-          f"images, {len(start.points3d)} points, {nobs} observations, "
-          f"written in {time.perf_counter() - t0:.1f} s")
+    start = seeded_model("dense_implicit", IMPLICIT, 3, workdir, models)
+    in_dir, nobs = start["in_dir"], start["observations"]
     mapper, launches, wall, peak = run_bundle_adjuster(
         device, in_dir, out_dir,
         {"PPSFM_BA_PATH": None, "PPSFM_SCHUR_MODE": None})
@@ -1213,8 +1310,7 @@ def phase_dense_implicit(device, card, workdir):
     check(sum(launches.values()) == 0, "a kernel ran on the implicit route")
     phase("dense_implicit", "no Schur kernel runs on this route (the "
           "implicit CG never forms S): launches all 0, as expected")
-    check_output_model(out_dir, IMPLICIT, line_error_sum(start),
-                       "dense_implicit")
+    check_output_model(out_dir, IMPLICIT, start["err_in"], "dense_implicit")
     s64, dt = float64_cost(device, in_dir, ba_mod.BAOptions(
         max_iterations=100, schur_mode="implicit"))
     compare_float64("dense_implicit", mapper.last_summary, s64, dt)
@@ -2591,15 +2687,16 @@ def mapper_shape_times(card, gram, pcg, C, gram_args, pcg_args, name,
 
 
 def phase_mapper(device, card, workdir, db):
-    """``mapper`` on phase ``extractor``'s database (cell Mapper-1600)
-    twice on the card (the second run under torch.profiler split by the
-    mapper's ``mapper.*`` and ``init.*`` spans when PROFILE is set): one
-    model with every image registered, the poses within MAPPER_BAR of the
-    rendering's truth, the two models byte-identical, the first run's
-    largest local and global BA held against the plain route
-    (``check_mapper_ba``), and ``schur_gram`` and ``schur_pcg`` launched
-    in the second run.  Returns the first run's wall, the second run's
-    launches and the kernels' largest errors in those BAs."""
+    """``mapper`` on phase ``extractor``'s database (cell Mapper-1600) on
+    the card: one model with every image registered, the poses within
+    MAPPER_BAR of the rendering's truth, the run's largest local and
+    global BA held against the plain route (``check_mapper_ba``), and
+    ``schur_gram`` and ``schur_pcg`` launched.  When PROFILE is set, a
+    second run under torch.profiler split by the mapper's ``mapper.*`` and
+    ``init.*`` spans must write the same model byte for byte (the default
+    run leaves it out for time: phases ``main``, ``ba300`` and ``ba1000``
+    hold the solvers' determinism).  Returns the first run's wall, the
+    last run's launches and the kernels' largest errors in those BAs."""
     import torch
 
     from privacy_preserving_sfm_torch.exe import ppsfm
@@ -2653,17 +2750,15 @@ def phase_mapper(device, card, workdir, db):
     errors = check_mapper_ba(device, card, solves)
     solves.clear()
     torch.cuda.empty_cache()
-    out_b = os.path.join(workdir, "mapper_b")
     if PROFILE:
+        out_b = os.path.join(workdir, "mapper_b")
         span_split("mapper", card, lambda: run(out_b),
                    prefixes=("mapper.", "init."))
-    else:
-        run(out_b)
-    same = _model_bytes(os.path.join(out_a, "0")) == _model_bytes(
-        os.path.join(out_b, "0"))
-    phase("mapper", f"second run's launches {dict(launches)}; two card "
-          f"runs byte-identical={same}")
-    check(same, "two card runs wrote different models")
+        same = _model_bytes(os.path.join(out_a, "0")) == _model_bytes(
+            os.path.join(out_b, "0"))
+        phase("mapper", f"second run's launches {dict(launches)}; two "
+              f"card runs byte-identical={same}")
+        check(same, "two card runs wrote different models")
     check(launches["schur_gram"] > 0 and launches["schur_pcg"] > 0,
           "the mapper launched no schur_gram or no schur_pcg")
     return wall, dict(launches), errors
@@ -3752,10 +3847,21 @@ def phase_viewer(workdir):
     cli = [sys.executable, "-m", "privacy_preserving_sfm_torch.exe",
            "model_viewer", "--input_path", model]
     env = dict(os.environ, PYTHONPATH=REPO)
-    t0 = time.perf_counter()
-    subprocess.run(cli + ["--html", html], check=True, cwd=REPO, env=env,
-                   timeout=120, capture_output=True, text=True)
-    wall = time.perf_counter() - t0
+    # The PNG request (below) runs in its own fresh process beside this one.
+    png = os.path.join(workdir, "viewer.png")
+    png_run = subprocess.Popen(cli + ["--output_path", png], cwd=REPO,
+                               env=env, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        subprocess.run(cli + ["--html", html], check=True, cwd=REPO,
+                       env=env, timeout=120, capture_output=True, text=True)
+        wall = time.perf_counter() - t0
+        _, png_err = png_run.communicate(timeout=300)
+    finally:
+        if png_run.poll() is None:
+            png_run.kill()
+            png_run.wait()
     with open(html) as f:
         payload = json.loads(re.search(r"const D=(\{.*?\});\n",
                                        f.read()).group(1))
@@ -3780,16 +3886,13 @@ def phase_viewer(workdir):
           f"and {payload['n_images']} cameras, payload equal to the model="
           f"{ok}")
     check(ok, "the viewer's payload differs from the model")
-    png = os.path.join(workdir, "viewer.png")
-    run = subprocess.run(cli + ["--output_path", png], cwd=REPO, env=env,
-                         timeout=300, capture_output=True, text=True)
     if importlib.util.find_spec("matplotlib") is not None:
-        ok = run.returncode == 0 and os.path.getsize(png) > 1000
+        ok = png_run.returncode == 0 and os.path.getsize(png) > 1000
         phase("viewer", f"model_viewer PNG (matplotlib installed): "
               f"written={ok}")
-        check(ok, f"model_viewer PNG failed: {run.stderr[-2000:]}")
+        check(ok, f"model_viewer PNG failed: {png_err[-2000:]}")
     else:
-        ok = run.returncode != 0 and "matplotlib" in run.stderr
+        ok = png_run.returncode != 0 and "matplotlib" in png_err
         phase("viewer", f"model_viewer PNG without matplotlib: refused "
               f"with an error naming it={ok}")
         check(ok, "a PNG without matplotlib did not fail as it should")
@@ -3827,6 +3930,22 @@ def device_split(name, card, run, kernel, top=6):
     check(mine > 0, f"the profiled run launched no {kernel}")
 
 
+def ba_keys(name, launches, errors, kernel):
+    """The kernels line's keys of a ``bundle_adjuster`` phase held by
+    ``check_mapper_ba`` (its global BA): launches (the PCG's grid path's
+    too), the largest float32 error against plain, and the kernel's,
+    plain version's and bound's ms at the solve's shape."""
+    e = errors[kernel]
+    keys = {f"{name}_launches": launches[kernel]}
+    if kernel == "schur_pcg":
+        keys[f"{name}_grid_launches"] = launches["schur_pcg_grid"]
+    keys.update({f"{name}_max_rel_err": e["mapper_max_rel_err"],
+                 f"{name}_ms": e["global_ms"],
+                 f"{name}_plain_ms": e["global_plain_ms"],
+                 f"{name}_bound_ms": e["global_bound_ms"]})
+    return keys
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "privacy_preserving_sfm_torch")):
         print("chip_smoke: privacy_preserving_sfm_torch not found beside "
@@ -3840,6 +3959,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    models_dir = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    maker = None
     try:
         card = phase_device()
         timed("build", phase_build)
@@ -3855,11 +3976,11 @@ def main() -> int:
                 "dense_explicit", phase_dense_explicit, device, card,
                 workdir)["schur_gram_aos"]
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as workdir:
-            ba300_launches, ba300_errors = timed("ba300", phase_ba300,
-                                                 device, card, workdir)
-        torch.cuda.empty_cache()
         match_stats = timed("match", phase_match, device, card)
+        # The models of ba300, ba1000 and dense_implicit are made beside
+        # matcher, parallel and sift, which time no kernel for the kernels
+        # line; the maker has ended before ba300.
+        maker, pending = start_models(models_dir)
         with tempfile.TemporaryDirectory() as workdir:
             launches["match_top2"] = timed(
                 "matcher", phase_matcher, device, card,
@@ -3871,6 +3992,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("sift", phase_sift, device, card, workdir)
+        models = finish_models(maker, pending)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            ba300_launches, ba300_errors = timed("ba300", phase_ba300,
+                                                 device, card, workdir,
+                                                 models)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            ba1000_launches, ba1000_errors = timed(
+                "ba1000", phase_ba1000, device, card, workdir, models)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             extractor_launches = timed("extractor", phase_extractor, device,
@@ -3899,11 +4030,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             timed("dense_implicit", phase_dense_implicit, device, card,
-                  workdir)
+                  workdir, models)
     except Exception:  # every phase failure ends the run with no result
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
         return 1
+    finally:
+        if maker is not None:
+            maker.terminate()
+            maker.join()
+        shutil.rmtree(models_dir, ignore_errors=True)
     src = "privacy_preserving_sfm_torch/kernels/"
     ref = "privacy_preserving_sfm_tpu/optim/schur_pcg.py"
     mref = "privacy_preserving_sfm_tpu/features/matching_kernels.py"
@@ -3915,11 +4051,9 @@ def main() -> int:
              hier_launches=hier_launches["schur_gram"],
              box50d_launches=box50d_launches["schur_gram"],
              box50d_max_rel_err=box50d_errors["schur_gram"],
-             ba300_launches=ba300_launches["schur_gram"],
-             ba300_max_rel_err=ba300_errors["schur_gram"][
-                 "mapper_max_rel_err"],
-             ba300_ms=ba300_errors["schur_gram"]["global_ms"],
-             ba300_bound_ms=ba300_errors["schur_gram"]["global_bound_ms"],
+             **ba_keys("ba300", ba300_launches, ba300_errors, "schur_gram"),
+             **ba_keys("ba1000", ba1000_launches, ba1000_errors,
+                       "schur_gram"),
              **mapper_errors["schur_gram"], **gram_stats),
         dict(name="schur_pcg", route="cuda", source=src + "schur_pcg.cu",
              replaces=f"{ref}:93", launches=launches["schur_pcg"],
@@ -3927,12 +4061,9 @@ def main() -> int:
              hier_launches=hier_launches["schur_pcg"],
              box50d_launches=box50d_launches["schur_pcg"],
              box50d_max_rel_err=box50d_errors["schur_pcg"],
-             ba300_launches=ba300_launches["schur_pcg"],
-             ba300_grid_launches=ba300_launches["schur_pcg_grid"],
-             ba300_max_rel_err=ba300_errors["schur_pcg"][
-                 "mapper_max_rel_err"],
-             ba300_ms=ba300_errors["schur_pcg"]["global_ms"],
-             ba300_bound_ms=ba300_errors["schur_pcg"]["global_bound_ms"],
+             **ba_keys("ba300", ba300_launches, ba300_errors, "schur_pcg"),
+             **ba_keys("ba1000", ba1000_launches, ba1000_errors,
+                       "schur_pcg"),
              **mapper_errors["schur_pcg"], **pcg_stats),
         dict(name="match_top2", route="cuda", source=src + "match_top2.cu",
              replaces=f"{mref}:250", also_replaces=f"{mref}:123",

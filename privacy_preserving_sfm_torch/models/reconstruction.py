@@ -241,8 +241,11 @@ class Reconstruction:
         if xyz.ndim == 1:
             xyz = np.broadcast_to(xyz, (n, 3))
         errs = np.empty(n)
-        for iid in np.unique(obs_img):
-            sel = obs_img == iid
+        # Each image's observations in their given order (a stable sort),
+        # as a mask would select them, without a pass over all n per image.
+        order = np.argsort(obs_img, kind="stable")
+        ids, starts = np.unique(obs_img[order], return_index=True)
+        for iid, sel in zip(ids, np.split(order, starts[1:])):
             img = self.images[int(iid)]
             cam = self.cameras[img.camera_id]
             errs[sel] = lines_np.squared_line_reprojection_error(
@@ -544,14 +547,15 @@ class Reconstruction:
                 f.write(f"{iid} {q[0]!r} {q[1]!r} {q[2]!r} {q[3]!r} "
                         f"{t[0]!r} {t[1]!r} {t[2]!r} "
                         f"{img.camera_id} {img.name}\n")
-                parts = []
-                for j in range(img.num_lines):
-                    a, b, c = (float(v) for v in img.lines[j])
-                    al = "1" if img.aligned[j] else "0"
-                    pid = int(img.point3d_ids[j])
-                    parts.append(f"{a!r} {b!r} {c!r} {al} "
-                                 f"{pid if pid != _INVALID else -1}")
-                f.write(" ".join(parts) + "\n")
+                n = img.num_lines
+                f.write(" ".join(
+                    f"{a!r} {b!r} {c!r} {'1' if al else '0'} "
+                    f"{pid if pid != _INVALID else -1}"
+                    for (a, b, c), al, pid in zip(
+                        np.asarray(img.lines[:n], float).tolist(),
+                        np.asarray(img.aligned[:n]).tolist(),
+                        np.asarray(img.point3d_ids[:n], np.int64).tolist()))
+                        + "\n")
 
     def _write_points3d_text(self, path: str):
         mean_track = self.compute_mean_track_length()
@@ -595,16 +599,13 @@ class Reconstruction:
                 tvec=np.asarray([float(p) for p in parts[5:8]]))
             lparts = content[i + 1].split()
             n = len(lparts) // 5
-            lines = np.zeros((n, 3))
-            aligned = np.zeros(n, bool)
-            pids = np.full(n, _INVALID, np.int64)
-            for j in range(n):
-                lines[j] = [float(lparts[5 * j + k]) for k in range(3)]
-                aligned[j] = lparts[5 * j + 3] == "1"
-                pids[j] = int(lparts[5 * j + 4])
-            img.lines = lines
-            img.aligned = aligned
-            img.point3d_ids = pids
+            lparts = lparts[:5 * n]
+            img.lines = np.stack([np.fromiter(map(float, lparts[k::5]),
+                                              float, n) for k in range(3)],
+                                 axis=1)
+            img.aligned = np.array([t == "1" for t in lparts[3::5]], bool)
+            img.point3d_ids = np.fromiter(map(int, lparts[4::5]), np.int64,
+                                          n)
             rec.add_image(img)
             rec.register_image(iid)
         pts_path = os.path.join(path, "points3D.txt")

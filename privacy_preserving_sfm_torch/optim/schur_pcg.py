@@ -63,6 +63,11 @@ _GRAM_CAM_BLOCK = {torch.float32: 64, torch.float64: 32}
 _TARGET_CTAS = 396
 _MAX_SPLITS = 8
 _PRECISIONS = ("f32", "bf16")
+# The plain Gram's V (3P, 6C) in bytes past which it is built and multiplied
+# a chunk of points at a time: at the reference's C = 1,000 crossover row
+# (P = 200,000) V holds 3.6e9 entries.  Every solve of the smoke's other
+# phases stays below it, in one product.
+PLAIN_V_BYTES = 2 ** 31
 
 
 def _round_up(n: int, m: int) -> int:
@@ -224,6 +229,14 @@ def compact_v_plain(LH: torch.Tensor, gL: torch.Tensor, plan: GramPlan,
     return Vc, rc
 
 
+def _gram_v(LH, gL, obs_cam, num_cams, precision):
+    V = _expand_v(LH, obs_cam, num_cams)
+    rhs = V.T @ gL.reshape(-1)
+    if precision == "bf16":
+        V = _round_bf16(V)
+    return V.T @ V, rhs
+
+
 def gram_aos_plain(LH: torch.Tensor, gL: torch.Tensor, obs_cam: torch.Tensor,
                    num_cams: int, precision: str = "f32"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,16 +244,24 @@ def gram_aos_plain(LH: torch.Tensor, gL: torch.Tensor, obs_cam: torch.Tensor,
 
     Materializes V (3P, 6C) and computes ``S_corr = V^T V`` and
     ``rhs_corr = V^T vec(gL)`` as two matrix products, the twin of the
-    reference's ``build_u_matrix`` followed by its one Gram product.  With
-    ``precision="bf16"`` V's entries are rounded for ``S_corr`` only (see
-    the module note).
+    reference's ``build_u_matrix`` followed by its one Gram product.  Where
+    V would pass ``PLAIN_V_BYTES``, both products are summed over chunks of
+    points, each chunk's V at most that size, in ascending point order.
+    With ``precision="bf16"`` V's entries are rounded for ``S_corr`` only
+    (see the module note).
     """
     _check_precision(precision)
-    V = _expand_v(LH, obs_cam, num_cams)
-    rhs = V.T @ gL.reshape(-1)
-    if precision == "bf16":
-        V = _round_bf16(V)
-    return V.T @ V, rhs
+    P = obs_cam.shape[0]
+    chunk = max(1, PLAIN_V_BYTES // (18 * max(num_cams, 1)
+                                     * LH.element_size()))
+    S, rhs = _gram_v(LH[:chunk], gL[:chunk], obs_cam[:chunk], num_cams,
+                     precision)
+    for p0 in range(chunk, P, chunk):
+        S_c, r_c = _gram_v(LH[p0:p0 + chunk], gL[p0:p0 + chunk],
+                           obs_cam[p0:p0 + chunk], num_cams, precision)
+        S += S_c
+        rhs += r_c
+    return S, rhs
 
 
 def gram_soa_plain(lh_stack: torch.Tensor, gL: torch.Tensor,

@@ -146,15 +146,12 @@ def synthetic_model(num_images: int, num_points: int, obs_per_point: int,
 
 def line_error_sum(rec: Reconstruction) -> float:
     """Sum of squared pixel point-to-line errors over all observations."""
-    obs_img, obs_li, xyz = [], [], []
-    for pt in rec.points3d.values():
-        for iid, li in pt.track:
-            obs_img.append(iid)
-            obs_li.append(li)
-            xyz.append(pt.xyz)
-    errs = rec.batch_squared_line_errors(np.asarray(obs_img),
-                                         np.asarray(obs_li),
-                                         np.asarray(xyz).reshape(-1, 3))
+    pts = list(rec.points3d.values())
+    obs = np.asarray([o for pt in pts for o in pt.track],
+                     np.int64).reshape(-1, 2)
+    xyz = np.repeat(np.asarray([pt.xyz for pt in pts]).reshape(-1, 3),
+                    [len(pt.track) for pt in pts], axis=0)
+    errs = rec.batch_squared_line_errors(obs[:, 0], obs[:, 1], xyz)
     return float(np.sum(errs))
 
 

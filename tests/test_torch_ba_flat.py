@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 
 from privacy_preserving_sfm_tpu.optim import ba as jba
+from privacy_preserving_sfm_tpu.optim import schur_pcg as jsp
+from privacy_preserving_sfm_tpu.sfm import incremental_mapper as jim
 from privacy_preserving_sfm_torch.optim import ba as tba
 from privacy_preserving_sfm_torch.optim import convert
 from privacy_preserving_sfm_torch.sfm.incremental_mapper import (
@@ -112,6 +114,10 @@ cuda 100  -     -        soa
 cuda 100  -     auto     soa
 cuda 100  -     explicit soa
 cuda 100  -     implicit dense-implicit
+cuda 513  -     -        soa
+cuda 1000 -     -        soa
+cuda 1024 -     -        soa
+cuda 1025 -     -        dense-implicit
 cuda 1100 -     -        dense-implicit
 cuda 1100 -     auto     dense-implicit
 cuda 1100 -     explicit dense-explicit
@@ -146,6 +152,17 @@ def test_route_matches_reference_truth_table(row):
     if route.solver == "dense":
         got += "-explicit" if route.explicit else "-implicit"
     assert got == expect
+
+
+def test_soa_route_matches_reference_padding_ladder():
+    """The port routes on the true camera count, the reference on the
+    count padded by its compile ladder (``_bucket_cams``); the SoA route
+    is taken at the same C either way, for every C up to 2,200."""
+    soa = [C for C in range(1, 2201)
+           if choose_ba_route("cuda", C, "auto").solver == "soa"]
+    ref = [C for C in range(1, 2201)
+           if jsp.explicit_fits(jim._bucket_cams(C))]
+    assert soa == ref == list(range(1, 1025))
 
 
 def test_route_reads_the_options_schur_mode():
