@@ -220,10 +220,12 @@ def _residual_and_jacobians(q, t, X, par, line, camera_model):
 
 
 def residuals_and_jacobians(q_o, t_o, X_o, par_o, line_o, camera_model):
-    """Batched over observations: r (N, 2), Jc (N, 2, 6), Jp (N, 2, 3)."""
+    """Batched over observations: r (N, 2), Jc (N, 2, 6), Jp (N, 2, 3).
+    ``torch.profiler`` sees the span ``ba.jacobians`` around the pass."""
     fn = functools.partial(_residual_and_jacobians,
                            camera_model=camera_model)
-    return vmap(fn)(q_o, t_o, X_o, par_o, line_o)
+    with record_function("ba.jacobians"):
+        return vmap(fn)(q_o, t_o, X_o, par_o, line_o)
 
 
 # ---------------------------------------------------------------------------
@@ -386,9 +388,11 @@ def _bins(plan: BinPlan, values: torch.Tensor) -> torch.Tensor:
     """Sum of ``values`` rows (N, ...) into the plan's bins.  Each bin adds
     its rows one after another in ascending source position, on every
     device and in every run: on the CPU, bit for bit what ``index_add_``
-    gives (an empty bin is 0)."""
-    return torch.segment_reduce(values.index_select(0, plan.order), "sum",
-                                offsets=plan.offsets, axis=0)
+    gives (an empty bin is 0).  ``torch.profiler`` sees the span
+    ``ba.bins`` around each sum."""
+    with record_function("ba.bins"):
+        return torch.segment_reduce(values.index_select(0, plan.order),
+                                    "sum", offsets=plan.offsets, axis=0)
 
 
 def damped(H: torch.Tensor, lam: float) -> torch.Tensor:

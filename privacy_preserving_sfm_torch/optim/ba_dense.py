@@ -65,16 +65,24 @@ class DenseBAProblem(NamedTuple):
     point_mask: torch.Tensor  # (P,)
 
 
+def _host_read(t: torch.Tensor) -> np.ndarray:
+    """A problem tensor copied to the host: the copy waits for the device."""
+    with record_function("ba_dense.host_read"):
+        return t.cpu().numpy()
+
+
+@record_function("ba_dense.from_flat_problem")
 def from_flat_problem(problem: ba_mod.BAProblem) -> DenseBAProblem:
     """Convert a flat BAProblem to dense per-point blocks (host-side numpy).
 
     Padding slots get camera 0, line (1, 0, 0) and weight 0, as in the
-    reference.
+    reference.  ``torch.profiler`` sees the span
+    ``ba_dense.from_flat_problem`` around the call and one
+    ``ba_dense.host_read`` around each of its four reads of the device.
     """
-    obs_point = problem.obs_point.cpu().numpy()
-    obs_cam = problem.obs_cam.cpu().numpy()
-    obs_line = problem.obs_line.cpu().numpy()
-    obs_weight = problem.obs_weight.cpu().numpy()
+    obs_point, obs_cam, obs_line, obs_weight = (_host_read(t) for t in (
+        problem.obs_point, problem.obs_cam, problem.obs_line,
+        problem.obs_weight))
     P = problem.points3d.shape[0]
 
     valid = obs_weight > 0

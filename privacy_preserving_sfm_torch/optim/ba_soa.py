@@ -27,10 +27,15 @@ optimization barriers, tuples of (K, P) component arrays) are replaced by
 ``index_select``-style gathers and the camera bins of ``ba._bins``, summed
 in a fixed order from a plan built once per solve.
 
-The LM loop is a Python loop that reads the accept flag once per
-iteration (and the gradient norm, when a gradient tolerance is set).
+The LM loop is a Python loop that reads the accept flag and the relative
+decrease once per iteration (and the gradient norm, when a gradient
+tolerance is set), and the initial and final costs for the summary.
 ``torch.profiler`` sees the spans ``ba_soa.build_normal``,
-``ba_soa.solve_step``, ``ba_soa.gram`` and ``ba_soa.pcg``.
+``ba_soa.solve_step``, ``ba_soa.gram`` and ``ba_soa.pcg``; inside the
+first, ``ba.jacobians`` (the residual and Jacobian pass) and ``ba.bins``
+(each camera bin sum); ``ba_soa.host_read`` around each of those reads of
+the device, ``schur_pcg.host_read`` around the Gram plan's, and
+``ba_soa.rejected_step`` once per rejected step.
 """
 
 from __future__ import annotations
@@ -72,6 +77,12 @@ def _sym3_matvec(m, x0, x1, x2):
     return (m11 * x0 + m21 * x1 + m31 * x2,
             m21 * x0 + m22 * x1 + m32 * x2,
             m31 * x0 + m32 * x1 + m33 * x2)
+
+
+def _host_read(cast, t: torch.Tensor):
+    """``cast(t)`` of a device scalar: the read waits for the device."""
+    with record_function("ba_soa.host_read"):
+        return cast(t)
 
 
 def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
@@ -190,20 +201,21 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
             gc_m = normal[4] * problem.cam_dof_mask
             gp_m = normal[1] * pmask[:, None]
             g_max = torch.maximum(gc_m.abs().max(), gp_m.abs().max())
-            grad_done = bool(g_max <= dyn.gradient_tolerance)
+            grad_done = _host_read(bool, g_max <= dyn.gradient_tolerance)
         dc, dp = solve_step(normal, lam)
         q_new, t_new, X_new = ba_mod._apply_step(
             q, t, X, -(dc * problem.cam_dof_mask), -(dp * pmask[:, None]))
         # Trial cost and normal equations from one pass: kept on accept
         # (the next linearization), dropped on reject.
         c_new, normal_new = build_normal(q_new, t_new, X_new)
-        accept = bool(c_new < c)
-        rel = float((c - c_new) / torch.clamp_min(c, 1e-30))
+        accept = _host_read(bool, c_new < c)
+        rel = _host_read(float, (c - c_new) / torch.clamp_min(c, 1e-30))
         if accept:
             q, t, X, c, normal = q_new, t_new, X_new, c_new, normal_new
             lam = max(lam / 3.0, options.min_lambda)
         else:
-            lam = min(lam * 4.0, options.max_lambda)
+            with record_function("ba_soa.rejected_step"):
+                lam = min(lam * 4.0, options.max_lambda)
         if accept and rel < dyn.function_tolerance:
             stall += 1
         elif accept:
@@ -214,7 +226,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         if rej >= options.max_consecutive_rejections:
             stall = 2
         it += 1
-    summary = ba_mod.BASummary(initial_cost=float(cost0),
-                               final_cost=float(c), num_iterations=it,
-                               lam=lam)
+    summary = ba_mod.BASummary(initial_cost=_host_read(float, cost0),
+                               final_cost=_host_read(float, c),
+                               num_iterations=it, lam=lam)
     return q, t, X, summary

@@ -50,6 +50,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from privacy_preserving_sfm_torch.kernels import build as kernels
 
@@ -148,7 +149,8 @@ class GramPlan(NamedTuple):
 def gram_plan(cam: torch.Tensor, num_cams: int, layout: str) -> GramPlan:
     """The Gram plan of camera ids ``cam`` ((K, P) for "soa", (P, K) for
     "aos"; negative = no camera), in torch ops on cam's device.  The only
-    host read is the size M (the most distinct cameras of a point)."""
+    host read is the size M (the most distinct cameras of a point), in the
+    span ``schur_pcg.host_read``."""
     if layout not in ("soa", "aos"):
         raise ValueError(f"layout must be 'soa' or 'aos', got {layout!r}")
     cam_pk = (cam.T if layout == "soa" else cam).long()
@@ -170,7 +172,8 @@ def gram_plan(cam: torch.Tensor, num_cams: int, layout: str) -> GramPlan:
     slot_d = torch.empty_like(sk).scatter_(1, sk, j_sorted)
     slot_d = torch.where(valid, slot_d, -1)
     count = lead.sum(1)
-    M = int(count.max()) if P else 0
+    with record_function("schur_pcg.host_read"):
+        M = int(count.max()) if P else 0
     if P * M >= 2 ** 31:
         raise ValueError(f"the Gram kernel indexes rows in int32; "
                          f"P * M = {P * M} is too large")
