@@ -22,9 +22,12 @@ position, the order of ``index_add_`` on the CPU, through a ``BinPlan``
 that each solve builds once (``bin_plan``: the bin ids do not change
 within a solve).  So a float32 solve on the card gives one result, and one
 LM iteration count, in every run: ``index_add_`` on CUDA adds with
-atomics, in an order that changes from run to run.  The flat and dense
-solvers read their options as given, as their references do (``ba_soa``
-rounds its options through float32, as its reference does).
+atomics, in an order that changes from run to run.  The dense-layout
+solvers (``ba_dense``, ``ba_soa``) keep only the observed slots (weight
+> 0) in their camera plan, so their padding slots reach no camera bin.
+The flat and dense solvers read their options as given, as their
+references do (``ba_soa`` rounds its options through float32, as its
+reference does).
 """
 
 from __future__ import annotations
@@ -375,9 +378,15 @@ class BinPlan(NamedTuple):
     offsets: torch.Tensor  # (num_bins + 1,) each bin's range of order
 
 
-def bin_plan(num_bins: int, index: torch.Tensor) -> BinPlan:
+def bin_plan(num_bins: int, index: torch.Tensor,
+             keep: torch.Tensor | None = None) -> BinPlan:
     """The plan of bin ids ``index`` (N,) in [0, num_bins), in torch ops on
-    index's device, with no host synchronisation."""
+    index's device, with no host synchronisation.  Rows where the (N,) bool
+    ``keep`` is false go into no bin: they sort after every kept row, so
+    ``offsets[num_bins]`` is the kept count and ``_bins`` never reads
+    them."""
+    if keep is not None:
+        index = torch.where(keep, index, num_bins)
     keys, order = torch.sort(index, stable=True)
     offsets = torch.searchsorted(keys, torch.arange(
         num_bins + 1, dtype=keys.dtype, device=keys.device))

@@ -7,7 +7,8 @@ are laid out densely per point,
 
 so point-side reductions are sums over the K axis, and only the reductions
 into the C camera bins remain (``ba._bins``, in a fixed order from a plan
-built once per solve, so a float32 solve gives one result every run).
+built once per solve, so a float32 solve gives one result every run; the
+plan keeps only the observed slots, so padding reaches no camera bin).
 ``bundle_adjust_dense`` is the LM solver of ``optim/ba.py`` on this
 layout, with two ways to solve the reduced camera system:
 
@@ -29,13 +30,13 @@ sees the spans ``ba_dense.build_normal``, ``ba_dense.solve_step``,
 
 Differences from the reference, none semantic:
   * K is the longest track, not a rung of the reference's K ladder (that
-    ladder bounds XLA compile keys; padded slots carry weight 0 and add
-    exact zeros);
+    ladder bounds XLA compile keys; padded slots carry weight 0);
   * the per-camera gather tables (``cam_gather``) and the three
     ``cam_reduce`` strategies (one-hot matmul, gather, two layouts) are
     TPU layout choices; the camera bins are summed by ``ba._bins``;
   * padding slots reach the Gram with camera id -1, so its kernel skips
-    them; their blocks are zero either way;
+    them, and the camera bins' plan leaves them out (the reference sums
+    their zero blocks);
   * ``gram_mode`` and ``PPSFM_PCG`` (TPU kernel against XLA loop) have no
     counterpart: on CUDA the kernels always run, ``plain=True`` aside.
 """
@@ -174,9 +175,11 @@ def bundle_adjust_dense(problem: DenseBAProblem, camera_model: str,
     eye6 = torch.eye(6, dtype=problem.points3d.dtype, device=dev)
     n = 6 * C
     oc = problem.obs_cam  # (P, K)
-    cams = ba_mod.bin_plan(C, oc.reshape(-1))  # camera bins' sum order
+    observed = problem.obs_weight > 0  # (P, K); the rest is padding
+    # The camera bins' summation order, of the observed slots only.
+    cams = ba_mod.bin_plan(C, oc.reshape(-1), keep=observed.reshape(-1))
     # The Gram kernel skips negative camera ids: padding slots get -1.
-    cam_gram = torch.where(problem.obs_weight > 0, oc, -1).to(torch.int32)
+    cam_gram = torch.where(observed, oc, -1).to(torch.int32)
     # The Gram kernel's plan of these ids, built once for the solve.
     gram_kw = {"plan": schur_pcg.gram_plan(cam_gram, C, "aos")} \
         if explicit and not plain else {}

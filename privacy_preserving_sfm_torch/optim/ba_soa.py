@@ -25,7 +25,9 @@ per-observation tensor reshapes to (K, P, ...) and point-side sums run
 over the K axis.  The reference's TPU layout tricks (one-hot MXU gathers,
 optimization barriers, tuples of (K, P) component arrays) are replaced by
 ``index_select``-style gathers and the camera bins of ``ba._bins``, summed
-in a fixed order from a plan built once per solve.
+in a fixed order from a plan built once per solve.  Padding slots (weight
+0) reach neither the Gram nor the camera bins: the plan keeps only the
+observed slots.
 
 The LM loop is a Python loop that reads the accept flag and the relative
 decrease once per iteration (and the gradient norm, when a gradient
@@ -107,14 +109,15 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
 
     # ---- static observation-side tensors (once per solve) ----
     oc_kp = problem.obs_cam.T.contiguous()  # (K, P)
+    observed = problem.obs_weight.T > 0  # (K, P); the rest is padding
     # The Gram kernel skips negative camera ids: padding slots get -1.
-    cam_kp32 = torch.where(problem.obs_weight.T > 0, oc_kp, -1).to(
-        torch.int32)
+    cam_kp32 = torch.where(observed, oc_kp, -1).to(torch.int32)
     # The Gram kernel's plan of these ids, built once for the solve.
     gram_kw = {} if plain else {
         "plan": schur_pcg.gram_plan(cam_kp32, C, "soa")}
     oc = oc_kp.reshape(-1)  # (K*P,), index k*P + p
-    cams = ba_mod.bin_plan(C, oc)  # the camera bins' summation order
+    # The camera bins' summation order, of the observed slots only.
+    cams = ba_mod.bin_plan(C, oc, keep=observed.reshape(-1))
     w_o = problem.obs_weight.T.reshape(-1).to(dtype)
     line_o = problem.obs_line.transpose(0, 1).reshape(-1, 3)
     par_o = problem.cam_params[oc]

@@ -7,13 +7,23 @@ atomics, in an order that changes between runs).  On the CPU that is the
 order in which ``index_add_`` adds, so the two agree to the bit, and the
 solvers' results on the CPU are what they were with ``index_add_``.  The
 solvers are held against the JAX package in ``test_torch_ba_*.py``.
+
+A plan built with ``keep`` puts the dropped rows into no bin.  The
+dense-layout solvers drop their padding slots (weight 0) so: their bins
+are those of the observed slots, and a solve returns, to the bit, what it
+returns with every slot in the plan (a padding slot only ever added an
+exact zero).  The solve-level cases on ``cuda`` skip without a card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from privacy_preserving_sfm_torch.ops import lie_np
 from privacy_preserving_sfm_torch.optim import ba as tba
+from privacy_preserving_sfm_torch.optim import ba_dense as tbd
+from privacy_preserving_sfm_torch.optim import ba_soa as tsoa
+from privacy_preserving_sfm_torch.optim import convert
 
 torch.set_num_threads(2)
 
@@ -34,17 +44,32 @@ def _case(kind, n, N, rng):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", [(), (6,), (6, 6), (3, 3)])
-@pytest.mark.parametrize("kind", ["uniform", "empty", "all_in_one"])
+@pytest.mark.parametrize("kind", ["uniform", "empty", "all_in_one",
+                                  "uniform_kept", "empty_kept",
+                                  "all_in_one_kept"])
 def test_bins_equal_index_add_to_the_bit(kind, shape, dtype):
+    """``*_kept``: a plan with ``keep`` that drops a third of the rows
+    (every second of them moved to bin 0), each holding NaN, inf or -inf;
+    the bins equal ``index_add_`` over the kept rows and stay finite."""
     rng = np.random.default_rng(hash((kind, shape)) % 2 ** 32)
     n, N = 37, 5000
-    index = torch.tensor(_case(kind, n, N, rng))
+    base = kind.removesuffix("_kept")
+    index = torch.tensor(_case(base, n, N, rng))
     values = torch.tensor(rng.standard_normal((N,) + shape), dtype=dtype)
-    got = tba._bins(tba.bin_plan(n, index), values)
-    ref = _index_add(n, index, values)
+    keep = None
+    if kind != base:
+        keep = torch.tensor(rng.random(N) < 2 / 3)
+        dropped = torch.nonzero(~keep)[:, 0]
+        index[dropped[::2]] = 0
+        bad = torch.tensor([np.nan, np.inf, -np.inf], dtype=dtype)
+        values[dropped] = bad[dropped % 3].reshape((-1,) + (1,) * len(shape))
+    got = tba._bins(tba.bin_plan(n, index, keep), values)
+    ref = (_index_add(n, index, values) if keep is None
+           else _index_add(n, index[keep], values[keep]))
     assert got.shape == ref.shape and got.dtype == dtype
     assert torch.equal(got, ref)
-    if kind != "uniform":
+    assert torch.isfinite(got).all()
+    if base != "uniform":
         assert not got[0].any() and not got[n - 1].any()
 
 
@@ -60,7 +85,122 @@ def test_bin_plan_is_the_stable_order_of_the_ids():
     assert got.tolist() == [0.0, 12.0]
 
 
+def test_bin_plan_with_keep_sorts_the_dropped_rows_last():
+    index = torch.tensor([3, 0, 3, 1, 0, 3, 5])
+    keep = torch.tensor([True, True, False, True, False, True, True])
+    plan = tba.bin_plan(6, index, keep)
+    assert plan.order.tolist() == [1, 3, 0, 5, 6, 2, 4]
+    assert plan.offsets.tolist() == [0, 1, 2, 2, 4, 4, 5]
+    values = torch.tensor([1.0, 2.0, np.nan, 4.0, np.inf, 8.0, 16.0],
+                          dtype=torch.float64)
+    got = tba._bins(plan, values)
+    assert got.tolist() == [2.0, 4.0, 0.0, 9.0, 0.0, 16.0]
+
+
+@pytest.mark.parametrize("n, N", [(5, 300), (37, 5000)])
+def test_bin_plan_keeping_every_row_is_the_plan_without_keep(n, N):
+    index = torch.tensor(np.random.default_rng(N).integers(0, n, N))
+    plain = tba.bin_plan(n, index)
+    kept = tba.bin_plan(n, index, torch.ones(N, dtype=torch.bool))
+    assert torch.equal(kept.order, plain.order)
+    assert torch.equal(kept.offsets, plain.offsets)
+
+
+def test_bins_with_every_row_dropped_are_zero():
+    index = torch.tensor([0, 2, 2, 1, 0])
+    plan = tba.bin_plan(3, index, torch.zeros(5, dtype=torch.bool))
+    assert plan.offsets.tolist() == [0, 0, 0, 0]
+    values = torch.full((5, 6), np.nan, dtype=torch.float32)
+    assert torch.equal(tba._bins(plan, values),
+                       torch.zeros(3, 6, dtype=torch.float32))
+
+
 def test_bins_of_no_rows_are_zero():
     plan = tba.bin_plan(4, torch.zeros(0, dtype=torch.long))
     got = tba._bins(plan, torch.zeros(0, 6, dtype=torch.float64))
     assert torch.equal(got, torch.zeros(4, 6, dtype=torch.float64))
+
+
+def _ragged_problem(seed, dtype, device, C=9, P=150):
+    """A flat problem whose tracks are 2 to C views long, so its dense
+    layout pads most points' slots; camera 0 holds real observations
+    besides the padding, and the gauge freezes camera 4 and one dof of
+    camera 6."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2, 2, (P, 3)) + np.array([0.0, 0.0, 8.0])
+    yaw = rng.uniform(-0.4, 0.4, C)
+    qs = np.stack([np.cos(yaw / 2), 0 * yaw, np.sin(yaw / 2), 0 * yaw], 1)
+    ts = np.stack([rng.uniform(-2, 2, C), rng.uniform(-0.3, 0.3, C),
+                   rng.uniform(-0.5, 0.5, C)], 1)
+    lengths = rng.integers(2, C + 1, P)
+    obs_cam = np.concatenate([rng.permutation(C)[:n] for n in lengths])
+    obs_point = np.repeat(np.arange(P), lengths)
+    Rm = np.stack([lie_np.quat_to_rotmat(q) for q in qs])
+    Xc = np.einsum("oij,oj->oi", Rm[obs_cam], pts[obs_point]) + ts[obs_cam]
+    uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 1e-3, (len(obs_cam), 2))
+    hom = np.concatenate([uv, np.ones((len(uv), 1))], 1)
+    lines = np.cross(rng.standard_normal((len(uv), 3)), hom)
+    lines /= np.linalg.norm(lines[:, :2], axis=-1, keepdims=True)
+    mask = np.ones((C, 6))
+    mask[4] = 0.0
+    mask[6, 3] = 0.0
+    fields = dict(
+        qvecs=qs + rng.normal(0, 1e-3, qs.shape),
+        tvecs=ts + rng.normal(0, 1e-2, ts.shape),
+        cam_params=np.tile([500.0, 320.0, 240.0], (C, 1)),
+        points3d=pts + rng.normal(0, 1e-2, pts.shape),
+        obs_cam=obs_cam, obs_point=obs_point, obs_line=lines,
+        obs_weight=np.ones(len(obs_cam)), cam_dof_mask=mask,
+        point_mask=np.ones(P))
+    return tbd.from_flat_problem(
+        convert.ba_problem_from_numpy(fields, device, dtype))
+
+
+def _solve(dense, route):
+    opts = tba.BAOptions(max_iterations=8,
+                         schur_mode="explicit" if route == "soa" else route)
+    if route == "soa":
+        return tsoa.bundle_adjust_soa(dense, "SIMPLE_PINHOLE", opts,
+                                      plain=True)
+    return tbd.bundle_adjust_dense(dense, "SIMPLE_PINHOLE", opts)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("route", ["soa", "explicit", "implicit"])
+def test_solve_without_padding_in_the_bins_is_bit_equal(route, dtype, device,
+                                                        monkeypatch):
+    """The dense-layout solvers on a ragged problem return, to the bit,
+    the poses and points and the iteration count of the same solve whose
+    camera plan keeps every slot, the padding's in camera 0's bin."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dense = _ragged_problem(7, dtype, torch.device(device))
+    P, K = dense.obs_cam.shape
+    padding = dense.obs_weight == 0
+    assert 0.3 * P * K < int(padding.sum()) < P * K
+    assert int((dense.obs_cam[~padding] == 0).sum()) > 0
+    assert bool((dense.obs_cam[padding] == 0).all())
+
+    plans = []
+    bin_plan = tba.bin_plan
+
+    def recorded(num_bins, index, keep=None):
+        plans.append(bin_plan(num_bins, index, keep))
+        return plans[-1]
+
+    monkeypatch.setattr(tba, "bin_plan", recorded)
+    *got, s_got = _solve(dense, route)
+    assert int(plans[-1].offsets[-1]) == P * K - int(padding.sum())
+
+    monkeypatch.setattr(tba, "bin_plan",
+                        lambda num_bins, index, keep=None:
+                        bin_plan(num_bins, index))
+    *ref, s_ref = _solve(dense, route)
+    assert s_got.num_iterations == s_ref.num_iterations > 1
+    assert s_got.final_cost == s_ref.final_cost < s_got.initial_cost
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
