@@ -17,12 +17,14 @@ Problem layout:
 
 The solvers reduce per-observation blocks into the C camera (and, here,
 the P point) bins with ``_bins`` (the reference's ``segment_sum`` and
-one-hot contractions).  It adds each bin's rows in ascending source
-position, the order of ``index_add_`` on the CPU, through a ``BinPlan``
-that each solve builds once (``bin_plan``: the bin ids do not change
-within a solve).  So a float32 solve on the card gives one result, and one
-LM iteration count, in every run: ``index_add_`` on CUDA adds with
-atomics, in an order that changes from run to run.  The dense-layout
+one-hot contractions), in an order fixed by a ``BinPlan`` that each solve
+builds once (``bin_plan``: the bin ids do not change within a solve).  On
+the CPU each bin adds its rows in ascending source position, the order of
+``index_add_``; on CUDA in two levels, runs of at most ``BIN_RUN`` rows
+and then each bin's run sums, so that no bin is one long chain of adds.
+So a float32 solve on the card gives one result, and one LM iteration
+count, in every run: ``index_add_`` on CUDA adds with atomics, in an
+order that changes from run to run.  The dense-layout
 solvers (``ba_dense``, ``ba_soa``) keep only the observed slots (weight
 > 0) in their camera plan, so their padding slots reach no camera bin.
 The flat and dense solvers read their options as given, as their
@@ -266,6 +268,13 @@ def _identity(x):
     return x
 
 
+def _host_read(cast, t: torch.Tensor):
+    """``cast(t)`` of a device scalar: the read waits for the device.
+    ``torch.profiler`` sees the span ``ba.host_read`` around it."""
+    with record_function("ba.host_read"):
+        return cast(t)
+
+
 def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
                         solve_step, intrinsics=None, reduce_max=_identity):
     """The LM loop of the reference's ``ba.bundle_adjust``,
@@ -283,7 +292,8 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
     returns (dc, du (U, Pr), dp).  The normal equations are rebuilt only
     after an accepted step (Ceres keeps the Jacobian across rejected
     ones).  The loop reads the accept flag on the host once per
-    iteration.  ``reduce_max`` takes the largest gradient entry of this
+    iteration (each read of the device is in a ``ba.host_read`` span).
+    ``reduce_max`` takes the largest gradient entry of this
     process's variables (a 0-d tensor) to that of the whole problem: the
     identity here, the max over the ranks of a point-sharded solve
     (``parallel/distributed_ba.py``), so that every rank stops at the same
@@ -313,15 +323,16 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
                                   (gp * pmask).abs().max())
             if intrinsics is not None:
                 g_max = torch.maximum(g_max, (normal[-2] * imask).abs().max())
-            grad_done = bool(reduce_max(g_max) <= options.gradient_tolerance)
+            grad_done = _host_read(
+                bool, reduce_max(g_max) <= options.gradient_tolerance)
         steps = solve_step(normal, lam)
         dc, dp = steps[0], steps[-1]
         x_new = _apply_step(x[0], x[1], x[2], -(dc * mask), -(dp * pmask))
         if intrinsics is not None:
             x_new = x_new + (x[3] - steps[1] * imask,)
         c_new = cost_fn(*x_new)
-        accept = bool(c_new < c)
-        rel = float((c - c_new) / torch.clamp_min(c, 1e-30))
+        accept = _host_read(bool, c_new < c)
+        rel = _host_read(float, (c - c_new) / torch.clamp_min(c, 1e-30))
         if accept:
             x, c = x_new, c_new
             lam = max(lam / 3.0, options.min_lambda)
@@ -338,7 +349,8 @@ def levenberg_marquardt(problem, options: BAOptions, cost_fn, build_normal,
             stall = 2
         rebuild = accept
         it += 1
-    summary = BASummary(initial_cost=float(cost0), final_cost=float(c),
+    summary = BASummary(initial_cost=_host_read(float, cost0),
+                        final_cost=_host_read(float, c),
                         num_iterations=it, lam=lam)
     return x + (summary,)
 
@@ -373,9 +385,18 @@ def _cost(problem: BAProblem, qvecs, tvecs, points, camera_model: str,
 
 class BinPlan(NamedTuple):
     """The order in which ``_bins`` sums rows into bins, built once per
-    solve by ``bin_plan``."""
+    solve by ``bin_plan``.  A two-level plan (``run_plan``) also holds the
+    runs of the first pass and each bin's range of them."""
     order: torch.Tensor    # (N,) source positions, by bin, stable
     offsets: torch.Tensor  # (num_bins + 1,) each bin's range of order
+    runs: torch.Tensor | None = None      # (R + 1,) each run's range
+    bin_runs: torch.Tensor | None = None  # (num_bins + 1,) runs by bin
+
+
+# Rows a first-pass run of a two-level plan holds: one segment_reduce
+# thread adds at most this many rows, and each bin's second-pass thread
+# adds about (rows in the bin) / BIN_RUN run sums.
+BIN_RUN = 512
 
 
 def bin_plan(num_bins: int, index: torch.Tensor,
@@ -384,24 +405,55 @@ def bin_plan(num_bins: int, index: torch.Tensor,
     index's device, with no host synchronisation.  Rows where the (N,) bool
     ``keep`` is false go into no bin: they sort after every kept row, so
     ``offsets[num_bins]`` is the kept count and ``_bins`` never reads
-    them."""
+    them.  On CUDA the plan is two-level (``run_plan`` with ``BIN_RUN``):
+    ``segment_reduce`` gives one thread a bin's whole chain of rows, which
+    for a bin of every observation (one shared camera) is hundreds of
+    thousands of dependent adds."""
     if keep is not None:
         index = torch.where(keep, index, num_bins)
     keys, order = torch.sort(index, stable=True)
     offsets = torch.searchsorted(keys, torch.arange(
         num_bins + 1, dtype=keys.dtype, device=keys.device))
-    return BinPlan(order, offsets)
+    plan = BinPlan(order, offsets)
+    return run_plan(plan, BIN_RUN) if index.is_cuda else plan
+
+
+def run_plan(plan: BinPlan, run: int) -> BinPlan:
+    """``plan`` with its bins cut into runs of at most ``run`` consecutive
+    rows of one bin, in the bins' order, with no host synchronisation.
+    The run table has a fixed length made from N and the bin count: a bin
+    of n rows has ceil(n / run) runs, so there are at most N // run +
+    num_bins; the runs past the last bin's are empty and lie in no bin."""
+    offsets = plan.offsets
+    num_bins = offsets.shape[0] - 1
+    kept = offsets[num_bins:]
+    counts = offsets[1:] - offsets[:-1]
+    bin_runs = torch.cat([offsets.new_zeros(1),
+                          torch.cumsum((counts + run - 1) // run, 0)])
+    j = torch.arange(min(plan.order.shape[0], plan.order.shape[0] // run
+                         + num_bins), device=offsets.device)
+    b = torch.searchsorted(bin_runs[1:], j, right=True).clamp_max(
+        max(num_bins - 1, 0))
+    starts = torch.minimum(offsets[b] + (j - bin_runs[b]) * run, kept)
+    return plan._replace(runs=torch.cat([starts, kept]), bin_runs=bin_runs)
 
 
 def _bins(plan: BinPlan, values: torch.Tensor) -> torch.Tensor:
-    """Sum of ``values`` rows (N, ...) into the plan's bins.  Each bin adds
-    its rows one after another in ascending source position, on every
-    device and in every run: on the CPU, bit for bit what ``index_add_``
-    gives (an empty bin is 0).  ``torch.profiler`` sees the span
+    """Sum of ``values`` rows (N, ...) into the plan's bins, in an order
+    fixed by the plan, on every device and in every run (an empty bin is
+    0).  A one-level plan (the CPU's) adds each bin's rows one after
+    another in ascending source position: bit for bit what ``index_add_``
+    gives on the CPU.  A two-level plan (CUDA's) adds each run's rows so,
+    then each bin's run sums in order.  ``torch.profiler`` sees the span
     ``ba.bins`` around each sum."""
     with record_function("ba.bins"):
-        return torch.segment_reduce(values.index_select(0, plan.order),
-                                    "sum", offsets=plan.offsets, axis=0)
+        rows = values.index_select(0, plan.order)
+        if plan.runs is None:
+            return torch.segment_reduce(rows, "sum", offsets=plan.offsets,
+                                        axis=0)
+        return torch.segment_reduce(
+            torch.segment_reduce(rows, "sum", offsets=plan.runs, axis=0),
+            "sum", offsets=plan.bin_runs, axis=0)
 
 
 def damped(H: torch.Tensor, lam: float) -> torch.Tensor:

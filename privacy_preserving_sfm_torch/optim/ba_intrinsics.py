@@ -28,7 +28,11 @@ blocks and a block-Jacobi preconditioner on both block types.  Every
 built once per solve (observations by camera slot, by point, by unique
 camera), so a float32 solve on the card gives one result in every run.
 No hand kernel: the reference is XLA.  ``torch.profiler`` sees the spans
-``ba_intr.build_normal`` and ``ba_intr.solve_step``.
+``ba_intr.build_normal``, ``ba_intr.solve_step``, ``ba.jacobians`` (the
+``vmap(jacfwd)`` pass), ``ba_intr.cg`` (the CG loop of a step) and the LM
+loop's ``ba.host_read``.  ``from_flat_problem`` builds the problem from a
+flat ``BAProblem``, for the mapper's ``_run_ba_intrinsics`` and any other
+caller.
 """
 
 from __future__ import annotations
@@ -92,6 +96,30 @@ def intr_mask_for_model(model: str, refine_focal: bool, refine_principal: bool,
     return mask
 
 
+def from_flat_problem(base: ba_mod.BAProblem, camera_model: str,
+                      cam_of_slot, intr, options: ba_mod.BAOptions
+                      ) -> IntrBAProblem:
+    """The problem of flat ``base`` with the intrinsics of its U unique
+    cameras variable: ``cam_of_slot`` (C,) gives each image slot's unique
+    camera, ``intr`` (U, Pr) their starting parameters, which are also the
+    parameters the lines were lifted with; the ``options.refine_*``
+    subsets are variable.  Arrays or tensors, put on ``base``'s device and
+    in its dtype (``cam_of_slot`` as int64)."""
+    dtype, dev = base.points3d.dtype, base.points3d.device
+    intr = torch.as_tensor(intr, dtype=dtype, device=dev).clone()
+    mask = intr_mask_for_model(camera_model, options.refine_focal_length,
+                               options.refine_principal_point,
+                               options.refine_extra_params)
+    return IntrBAProblem(
+        base=base,
+        cam_of_slot=torch.as_tensor(cam_of_slot, dtype=torch.int64,
+                                    device=dev),
+        intr_params=intr,
+        intr_mask=torch.as_tensor(np.tile(mask, (intr.shape[0], 1)),
+                                  dtype=dtype, device=dev),
+        lift_params=intr)
+
+
 def _inv_small(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Inverse of (..., n, n) blocks for a small n: ``linalg.solve_gauss``
     against each column of the identity."""
@@ -128,8 +156,9 @@ def _residuals_and_jacobians(problem: IntrBAProblem, qvecs, tvecs, points,
     oc, op = base.obs_cam, base.obs_point
     ou = problem.cam_of_slot[oc]
     fn = functools.partial(_one, camera_model=camera_model)
-    r, Jc, Jp, Ji = vmap(fn)(qvecs[oc], tvecs[oc], points[op], intr[ou],
-                             problem.lift_params[ou], base.obs_line)
+    with record_function("ba.jacobians"):
+        r, Jc, Jp, Ji = vmap(fn)(qvecs[oc], tvecs[oc], points[op], intr[ou],
+                                 problem.lift_params[ou], base.obs_line)
     Jc = Jc * base.cam_dof_mask[oc][:, None, :]
     Jp = Jp * base.point_mask[op][:, None, None]
     Ji = Ji * problem.intr_mask[ou][:, None, :]
@@ -233,20 +262,21 @@ def bundle_adjust_intrinsics(problem: IntrBAProblem, camera_model: str,
         def guard(v):
             return torch.where(v.abs() < 1e-30, v.new_full((), 1e-30), v)
 
-        x = (torch.zeros_like(rhs[0]), torch.zeros_like(rhs[1]))
-        rr = rhs
-        p = precond(rhs)
-        rz = dot(rhs, p)
-        for _ in range(options.cg_iterations):
-            Ap = S_matvec(*p)
-            alpha = rz / guard(dot(p, Ap))
-            x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
-            rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
-            z = precond(rr)
-            rz_new = dot(rr, z)
-            beta = rz_new / guard(rz)
-            p = (z[0] + beta * p[0], z[1] + beta * p[1])
-            rz = rz_new
+        with record_function("ba_intr.cg"):
+            x = (torch.zeros_like(rhs[0]), torch.zeros_like(rhs[1]))
+            rr = rhs
+            p = precond(rhs)
+            rz = dot(rhs, p)
+            for _ in range(options.cg_iterations):
+                Ap = S_matvec(*p)
+                alpha = rz / guard(dot(p, Ap))
+                x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+                rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+                z = precond(rr)
+                rz_new = dot(rr, z)
+                beta = rz_new / guard(rz)
+                p = (z[0] + beta * p[0], z[1] + beta * p[1])
+                rz = rz_new
         dc, du = (ba_mod._finite_or_zero(v) for v in x)
         # Back-substitution: dp = Hpp^-1 (gp - E^T (dc, du)).
         Etd = bins(pts, mvt(Hcp_o, dc[oc]) + mvt(Hip_o, du[ou]))

@@ -920,10 +920,11 @@ class IncrementalMapper:
         """The variable-intrinsics solve (``optim/ba_intrinsics``,
         reference ``incremental_mapper.py:1093-1166``): one unique camera
         per camera id, in slot order, with the ``refine_*`` subsets
-        variable; on a finite result the free poses and variable points
-        are written back and, for each refined camera whose params moved,
-        the correction is baked into its params and the lines of every
-        image of the camera.  ``last_route`` is ("intrinsics", False)."""
+        variable (``ba_intrinsics.from_flat_problem``); on a finite result
+        the free poses and variable points are written back and, for each
+        refined camera whose params moved, the correction is baked into
+        its params and the lines of every image of the camera.
+        ``last_route`` is ("intrinsics", False)."""
         rec = self.rec
         cam_ids: List[int] = []  # unique camera ids, slot order
         cam_of_slot = np.zeros(len(asm.cam_list), np.int64)
@@ -933,19 +934,12 @@ class IncrementalMapper:
                 cam_ids.append(cid)
             cam_of_slot[i] = cam_ids.index(cid)
         intr = np.stack([rec.cameras[cid].params for cid in cam_ids])
-        intr_mask = np.tile(ba_intr.intr_mask_for_model(
+        refined = ba_intr.intr_mask_for_model(
             asm.camera_model, ba_options.refine_focal_length,
             ba_options.refine_principal_point,
-            ba_options.refine_extra_params), (len(cam_ids), 1))
-
-        def f(a):
-            return torch.tensor(a, dtype=self.dtype, device=self.device)
-
-        problem = ba_intr.IntrBAProblem(
-            base=asm.problem,
-            cam_of_slot=torch.tensor(cam_of_slot, device=self.device),
-            intr_params=f(intr), intr_mask=f(intr_mask),
-            lift_params=f(intr))
+            ba_options.refine_extra_params).any()
+        problem = ba_intr.from_flat_problem(
+            asm.problem, asm.camera_model, cam_of_slot, intr, ba_options)
         t_assembled = time.perf_counter()
         q, t, X, intr_new, summary = ba_intr.bundle_adjust_intrinsics(
             problem, asm.camera_model, ba_options)
@@ -958,7 +952,7 @@ class IncrementalMapper:
         if not ok:
             return ok, num_obs
         for u, cid in enumerate(cam_ids):
-            if (intr_mask[u] > 0).any() and \
+            if refined and \
                     not np.allclose(rec.cameras[cid].params, intr_new[u]):
                 self._bake_intrinsics(cid, intr_new[u])
         return True, num_obs

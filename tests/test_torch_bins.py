@@ -173,7 +173,9 @@ def test_solve_without_padding_in_the_bins_is_bit_equal(route, dtype, device,
                                                         monkeypatch):
     """The dense-layout solvers on a ragged problem return, to the bit,
     the poses and points and the iteration count of the same solve whose
-    camera plan keeps every slot, the padding's in camera 0's bin."""
+    camera plan keeps every slot, the padding's in camera 0's bin.  Both
+    solves sum in the one-level order (the CPU's): on the card a two-level
+    plan's runs would move with the padding rows counted in them."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if device == "cuda":
@@ -188,8 +190,11 @@ def test_solve_without_padding_in_the_bins_is_bit_equal(route, dtype, device,
     plans = []
     bin_plan = tba.bin_plan
 
+    def one_level(plan):
+        return tba.BinPlan(plan.order, plan.offsets)
+
     def recorded(num_bins, index, keep=None):
-        plans.append(bin_plan(num_bins, index, keep))
+        plans.append(one_level(bin_plan(num_bins, index, keep)))
         return plans[-1]
 
     monkeypatch.setattr(tba, "bin_plan", recorded)
@@ -198,9 +203,138 @@ def test_solve_without_padding_in_the_bins_is_bit_equal(route, dtype, device,
 
     monkeypatch.setattr(tba, "bin_plan",
                         lambda num_bins, index, keep=None:
-                        bin_plan(num_bins, index))
+                        one_level(bin_plan(num_bins, index)))
     *ref, s_ref = _solve(dense, route)
     assert s_got.num_iterations == s_ref.num_iterations > 1
     assert s_got.final_cost == s_ref.final_cost < s_got.initial_cost
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _two_level_sum(n, index, values, run, keep=None):
+    """The two-level order written out: each bin's kept rows in ascending
+    source position, cut into runs of at most ``run``; each run's rows
+    added one after another, then the bin's run sums in order."""
+    out = []
+    for b in range(n):
+        rows = [i for i in range(len(index)) if int(index[i]) == b
+                and (keep is None or bool(keep[i]))]
+        total = torch.zeros_like(values[0])
+        for s in range(0, len(rows), run):
+            part = torch.zeros_like(values[0])
+            for i in rows[s:s + run]:
+                part = part + values[i]
+            total = total + part
+        out.append(total)
+    return torch.stack(out)
+
+
+B = 4
+# Rows of bins 0..5: 0, 1, B, B + 1, many (7 runs and a part), 3.
+SIZES = [0, 1, B, B + 1, 7 * B + 2, 3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(), (6,), (3, 3)])
+@pytest.mark.parametrize("kept", [False, True])
+def test_two_level_bins_are_the_two_level_sum_to_the_bit(kept, shape, dtype):
+    """A two-level plan (``run_plan``, runs of B = 4 rows) on the CPU: bins
+    of 0, 1, B, B + 1 and many rows, the rows of each bin scattered among
+    the others; with ``kept`` a third of the rows dropped (holding NaN
+    and inf).  Bit for bit the explicit sum in the same order, the same
+    bits in a second run, and the plan's run table of the fixed length
+    N // B + bins."""
+    rng = np.random.default_rng(len(shape) + 10 * kept)
+    n = len(SIZES)
+    index = torch.tensor(rng.permutation(np.repeat(np.arange(n), SIZES)))
+    N = len(index)
+    values = torch.tensor(rng.standard_normal((N,) + shape), dtype=dtype)
+    keep = None
+    if kept:
+        keep = torch.tensor(rng.random(N) < 2 / 3)
+        values[~keep] = torch.tensor(np.inf, dtype=dtype)
+        values[torch.nonzero(~keep)[::2, 0]] = torch.tensor(np.nan,
+                                                            dtype=dtype)
+    plan = tba.run_plan(tba.bin_plan(n, index, keep), B)
+    assert plan.runs.shape == (N // B + n + 1,)
+    assert int(plan.runs[-1]) == int(plan.offsets[-1])
+    assert bool((plan.runs[1:] - plan.runs[:-1] <= B).all())
+    got = tba._bins(plan, values)
+    assert torch.equal(got, _two_level_sum(n, index, values, B, keep))
+    assert torch.equal(got, tba._bins(plan, values))
+    assert torch.isfinite(got).all()
+    assert not got[0].any()
+
+
+def test_two_level_plan_runs_by_hand():
+    """Bin 1 of 5 rows in runs of 2: (2, 2, 1); bin 0 empty; bin 2 one
+    row; the two runs past the last bin's are empty."""
+    index = torch.tensor([1, 2, 1, 1, 1, 1])
+    plan = tba.run_plan(tba.bin_plan(3, index), 2)
+    assert plan.order.tolist() == [0, 2, 3, 4, 5, 1]
+    assert plan.runs.tolist() == [0, 2, 4, 5, 6, 6, 6]
+    assert plan.bin_runs.tolist() == [0, 0, 3, 4]
+    # Bin 1's runs (1 + 1e16), (-1e16 + 1), (1) sum to 1e16 - 1e16 + 1 =
+    # 1, where one chain of its rows gives (((1 + 1e16) - 1e16) + 1) + 1
+    # = 2.
+    values = torch.tensor([1.0, 3.0, 1e16, -1e16, 1.0, 1.0],
+                          dtype=torch.float64)
+    assert tba._bins(plan, values).tolist() == [0.0, 1.0, 3.0]
+    one = tba.bin_plan(3, index)
+    assert tba._bins(one, values).tolist() == [0.0, 2.0, 3.0]
+
+
+def test_two_level_bins_of_no_rows_are_zero():
+    plan = tba.run_plan(tba.bin_plan(4, torch.zeros(0, dtype=torch.long)), 3)
+    got = tba._bins(plan, torch.zeros(0, 6, dtype=torch.float32))
+    assert torch.equal(got, torch.zeros(4, 6, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_bins_on_the_card_are_two_level_and_repeat_to_the_bit():
+    """On the card ``bin_plan`` is two-level (``BIN_RUN``): a bin of every
+    row (one shared camera), bins of 300 cameras, kept rows dropped; the
+    same bits in two runs, and the explicit two-level sum's bits on the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    N = 200_000
+    for n, keep in ((1, None), (300, rng.random(N) < 0.6)):
+        index = torch.tensor(rng.integers(0, n, N), device=dev)
+        values = torch.tensor(rng.standard_normal((N, 3, 3)),
+                              dtype=torch.float32, device=dev)
+        keep_t = None if keep is None else torch.tensor(keep, device=dev)
+        plan = tba.bin_plan(n, index, keep_t)
+        assert plan.runs is not None
+        first = tba._bins(plan, values)
+        second = tba._bins(tba.bin_plan(n, index, keep_t), values)
+        assert torch.equal(first, second)
+        cpu = tba.run_plan(tba.bin_plan(
+            n, index.cpu(), None if keep_t is None else keep_t.cpu()),
+            tba.BIN_RUN)
+        assert torch.equal(first.cpu(), tba._bins(cpu, values.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["soa", "explicit", "implicit"])
+def test_two_level_solve_on_the_card_repeats_to_the_bit(route, monkeypatch):
+    """The dense-layout solvers on the card, with their camera bins in the
+    two-level order: the same poses, points and iterations in two runs,
+    and the one-level order's final cost to float32 rounding (1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dense = _ragged_problem(7, torch.float32, torch.device("cuda"))
+    *first, s1 = _solve(dense, route)
+    *second, s2 = _solve(dense, route)
+    assert s1 == s2 and s1.final_cost < s1.initial_cost
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    bin_plan = tba.bin_plan
+    monkeypatch.setattr(tba, "bin_plan",
+                        lambda num_bins, index, keep=None: tba.BinPlan(
+                            *bin_plan(num_bins, index, keep)[:2]))
+    *_, s_one = _solve(dense, route)
+    assert abs(s1.final_cost - s_one.final_cost) <= 1e-4 * s_one.final_cost

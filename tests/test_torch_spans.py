@@ -187,3 +187,52 @@ def test_match_many_pairs_spans(cross_check):
         assert n[name] == 2, name
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+def _intr_solve(opts):
+    """A tiny shared-camera solve through ``ba_intrinsics.
+    from_flat_problem``: the focal started 2 % off, the lines lifted under
+    it."""
+    from privacy_preserving_sfm_torch.optim import ba_intrinsics as tbi
+
+    fields = _fields()
+    base = convert.ba_problem_from_numpy(fields, "cpu", torch.float64)
+    f0 = np.array([[510.0, 320.0, 240.0]])
+    lines = tbi.corrected_line(base.obs_line, torch.tensor(
+        [500.0, 320.0, 240.0], dtype=torch.float64), torch.tensor(
+        f0[0]), MODEL)
+    problem = tbi.from_flat_problem(
+        base._replace(obs_line=lines), MODEL,
+        np.zeros(len(fields["qvecs"]), np.int64), f0, opts)
+    return tbi.bundle_adjust_intrinsics(problem, MODEL, opts)
+
+
+@pytest.mark.parametrize("gradient_tolerance", [0.0, 1e-30])
+def test_ba_intrinsics_spans_count_iterations_and_reads(gradient_tolerance):
+    """The shared LM loop's reads of the device, each a ``ba.host_read``
+    span: the accept flag and the relative decrease an iteration, the
+    gradient test with a gradient tolerance, the summary's two costs;
+    one ``ba.jacobians`` a ``build_normal``, one ``ba_intr.cg`` a
+    ``solve_step``."""
+    opts = tba.BAOptions(max_iterations=12, refine_focal_length=True,
+                         gradient_tolerance=gradient_tolerance)
+    (*_, summary), n = _traced(lambda: _intr_solve(opts))
+    it = summary.num_iterations
+    assert 2 < it <= opts.max_iterations
+    per_iter = 3 if gradient_tolerance > 0 else 2
+    assert n["ba.host_read"] == per_iter * it + 2
+    assert sum(v for k, v in n.items() if k.endswith(".host_read")) \
+        == per_iter * it + 2
+    assert n["ba_intr.solve_step"] == it == n["ba_intr.cg"]
+    builds = n["ba_intr.build_normal"]
+    assert it - _rejections(summary, opts) <= builds <= it
+    assert n["ba.jacobians"] == builds
+
+
+def test_ba_intrinsics_solve_is_unchanged_under_the_profiler():
+    opts = tba.BAOptions(max_iterations=6, refine_focal_length=True)
+    want = _intr_solve(opts)
+    got, _ = _traced(lambda: _intr_solve(opts))
+    for a, b in zip(want[:4], got[:4]):
+        assert torch.equal(a, b)
+    assert want[4] == got[4]
